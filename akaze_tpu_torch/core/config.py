@@ -2,10 +2,12 @@
 package's `akaze_tpu/core/config.py`, same fields and defaults).
 
 The TPU execution knobs (`pallas_octaves`, `patch_backend`,
-`describe_backend`, `describe_group`, `describe_loop`, `deep_octave_frames`,
+`describe_group`, `describe_loop`, `deep_octave_frames`,
 `MatchConfig.backend`) are kept as fields so that a configuration converts
-field for field between the two packages; the port reads none of them, and
-it reads no environment variable.
+field for field between the two packages; the port reads none of them.  It
+reads `describe_backend` as the JAX package does on a TPU ("auto" and
+"fused": the fused describe kernel; "xla" and "pallas": the non-fused
+chunked describe), and no environment variable.
 """
 
 from __future__ import annotations
@@ -55,6 +57,8 @@ class AkazeConfig:
     candidate_recall: float = 0.95
     pallas_octaves: int = 4
     patch_backend: str = "auto"
+    # Describe branch of extract_batch: "auto" / "fused" (kernel 3), "xla" /
+    # "pallas" (the non-fused chunked describe, patches from kernel 7).
     describe_backend: str = "auto"
     describe_group: int = 8
     describe_loop: str = "map"

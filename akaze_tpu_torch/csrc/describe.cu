@@ -1,7 +1,7 @@
-// Kernel 3 of the port: orientation + M-LDB description on Hopper.
+// Kernels 3 and 6 of the port: orientation + M-LDB description on Hopper.
 //
-// Replaces akaze_tpu/kernels/describe_fused.py :: describe_fused (_run,
-// _fused_kernel).  The TPU kernel DMA'd an 8x128-aligned patch per keypoint
+// Kernel 3 replaces akaze_tpu/kernels/describe_fused.py :: describe_fused
+// (_run, _fused_kernel).  The TPU kernel DMA'd an 8x128-aligned patch per keypoint
 // into VMEM and sampled it with one-hot MXU products; here one warp owns one
 // keypoint slot and reads its ~1,500 samples straight from the level planes
 // in global memory (the planes of a batch stay resident in the 50 MB L2 far
@@ -15,6 +15,12 @@
 // slot is looked at.  The work is bound by bytes (the samples: ~6 KB per
 // keypoint against ~25 kflop), and the design touches each sample once,
 // through L1/L2, keeping the per-keypoint intermediates in shared memory.
+//
+// Kernel 6 replaces akaze_tpu/kernels/describe_pallas.py :: describe_pallas
+// (_describe_kernel): the same per-slot work for one frame, reading that
+// frame's padded (L, H0, W0) stacks in place (no per-keypoint DMA window, no
+// one-hot matmul sampling).  Both kernels run one body, describe_slot, and
+// are bound the same way.
 //
 // Numerics as the reference: the Cephes atan2 polynomial (not atan2f); the
 // remainder mod 2 pi takes the divisor's sign; sample coordinates are
@@ -38,6 +44,14 @@
 #define TWO_PI 6.28318548202514648f  // float32(2 pi)
 #define PI_F 3.14159274101257324f    // float32(pi)
 
+// Sampling tables (kernels/describe.py _host_tables), shared by kernels 3
+// and 6.
+struct Tables {
+  const float* ftab;
+  const int* itab;
+  int n_ori, n_win, n_samp, n_cells, n_bits, n_words;
+};
+
 struct DescArgs {
   const float* lt[MAXG];
   const float* lx[MAXG];
@@ -46,11 +60,27 @@ struct DescArgs {
   int B, n_kp;
   const float* kpf;  // (n_kp, 5): xf, yf, scale, xmax, ymax
   const int* kpi;    // (n_kp, 4): group, level in group, frame, valid
-  const float* ftab;
-  const int* itab;
-  int n_ori, n_win, n_samp, n_cells, n_bits, n_words;
+  Tables t;
   float* angle;
   int* desc;
+};
+
+// Kernel 6's arguments: one frame's padded (L, H0, W0) stacks.
+struct SingleArgs {
+  const float *lt, *lx, *ly;
+  int H0, W0, n_kp;
+  const float* kpf;  // (n_kp, 5): xf, yf, scale, xmax, ymax
+  const int* kpi;    // (n_kp, 2): level, valid
+  Tables t;
+  float* angle;
+  int* desc;
+};
+
+// Per-warp shared scratch of one slot.
+struct SlotSmem {
+  float rx[MAX_ORI], ry[MAX_ORI], ang[MAX_ORI];
+  float smp[3][MAX_SAMP];
+  float mean[3 * MAX_CELLS];
 };
 
 __device__ float atan2_cephes(float y, float x) {
@@ -86,69 +116,56 @@ __device__ __forceinline__ size_t sample_at(float xf, float yf, float offx, floa
   return (size_t)iy * w + ix;
 }
 
-__global__ void __launch_bounds__(WARPS * 32) describe_kernel(DescArgs a) {
-  __shared__ float s_rx[WARPS][MAX_ORI], s_ry[WARPS][MAX_ORI], s_ang[WARPS][MAX_ORI];
-  __shared__ float s_smp[WARPS][3][MAX_SAMP];
-  __shared__ float s_mean[WARPS][3 * MAX_CELLS];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int kp = blockIdx.x * WARPS + warp;
-  if (kp >= a.n_kp) return;  // whole warp
-  const int* ki = a.kpi + 4 * kp;
-  if (ki[3] == 0) {
-    if (lane == 0) a.angle[kp] = 0.f;
-    if (lane < a.n_words) a.desc[(size_t)kp * a.n_words + lane] = 0;
-    return;  // whole warp
-  }
-  const int g = ki[0];
-  const int w = a.gw[g];
-  const size_t off = ((size_t)ki[1] * a.B + ki[2]) * (size_t)a.gh[g] * w;
-  const float* Lt = a.lt[g] + off;
-  const float* Lx = a.lx[g] + off;
-  const float* Ly = a.ly[g] + off;
-  const float* kf = a.kpf + 5 * kp;
-  const float xf = kf[0], yf = kf[1], sc = kf[2], xmax = kf[3], ymax = kf[4];
+__device__ __forceinline__ void zero_slot(const Tables& t, int kp, int lane, float* angle,
+                                          int* desc) {
+  if (lane == 0) angle[kp] = 0.f;
+  if (lane < t.n_words) desc[(size_t)kp * t.n_words + lane] = 0;
+}
 
-  const float* ori_di = a.ftab;
-  const float* ori_dj = ori_di + a.n_ori;
-  const float* ori_w = ori_dj + a.n_ori;
-  const float* win_lo = ori_w + a.n_ori;
-  const float* win_hi = win_lo + a.n_win;
-  const float* win_wrap = win_hi + a.n_win;
-  const float* offk = win_wrap + a.n_win;
-  const float* offl = offk + a.n_samp;
-  const float* cell_w = offl + a.n_samp;
-  const int* cell_start = a.itab;
-  const int* cell_mem = cell_start + a.n_cells + 1;
-  const int* bit_a = cell_mem + cell_start[a.n_cells];
-  const int* bit_b = bit_a + a.n_bits;
+// Orientation + M-LDB of one valid slot by one warp.  Lt/Lx/Ly point at the
+// slot's level plane (row stride w); kf = (xf, yf, scale, xmax, ymax).
+__device__ void describe_slot(const Tables& t, const float* Lt, const float* Lx, const float* Ly,
+                              int w, const float* kf, SlotSmem& sm, int lane, int kp,
+                              float* angle_out, int* desc_out) {
+  const float xf = kf[0], yf = kf[1], sc = kf[2], xmax = kf[3], ymax = kf[4];
+  const float* ori_di = t.ftab;
+  const float* ori_dj = ori_di + t.n_ori;
+  const float* ori_w = ori_dj + t.n_ori;
+  const float* win_lo = ori_w + t.n_ori;
+  const float* win_hi = win_lo + t.n_win;
+  const float* win_wrap = win_hi + t.n_win;
+  const float* offk = win_wrap + t.n_win;
+  const float* offl = offk + t.n_samp;
+  const float* cell_w = offl + t.n_samp;
+  const int* cell_start = t.itab;
+  const int* cell_mem = cell_start + t.n_cells + 1;
+  const int* bit_a = cell_mem + cell_start[t.n_cells];
+  const int* bit_b = bit_a + t.n_bits;
 
   // Orientation samples.
-  float* rx = s_rx[warp];
-  float* ry = s_ry[warp];
-  float* ang = s_ang[warp];
-  for (int s = lane; s < a.n_ori; s += 32) {
+  for (int s = lane; s < t.n_ori; s += 32) {
     const size_t p = sample_at(xf, yf, ori_di[s], ori_dj[s], sc, xmax, ymax, w);
     const float vx = ori_w[s] * __ldg(Lx + p);
     const float vy = ori_w[s] * __ldg(Ly + p);
-    rx[s] = vx;
-    ry[s] = vy;
-    ang[s] = mod_2pi(atan2_cephes(vy, vx));
+    sm.rx[s] = vx;
+    sm.ry[s] = vy;
+    sm.ang[s] = mod_2pi(atan2_cephes(vy, vx));
   }
   __syncwarp();
 
   // SURF windows: each lane sums its windows; the warp keeps the first max.
   float best_n = -1.f, best_x = 0.f, best_y = 0.f;
   int best_i = 1 << 30;
-  for (int wi = lane; wi < a.n_win; wi += 32) {
+  for (int wi = lane; wi < t.n_win; wi += 32) {
     const float lo = win_lo[wi], hi = win_hi[wi], hi_wrapped = hi - TWO_PI;
     const bool wrap = win_wrap[wi] > 0.5f;
     float sx = 0.f, sy = 0.f;
-    for (int s = 0; s < a.n_ori; ++s) {
-      const float an = ang[s];
+    for (int s = 0; s < t.n_ori; ++s) {
+      const float an = sm.ang[s];
       const bool in = wrap ? (an > lo || an < hi_wrapped) : (an > lo && an < hi);
       if (in) {
-        sx = sx + rx[s];
-        sy = sy + ry[s];
+        sx = sx + sm.rx[s];
+        sy = sy + sm.ry[s];
       }
     }
     const float nrm = sx * sx + sy * sy;
@@ -175,52 +192,96 @@ __global__ void __launch_bounds__(WARPS * 32) describe_kernel(DescArgs a) {
   const float co = cosf(angle), si = sinf(angle);
 
   // M-LDB samples, gradients rotated into the keypoint frame.
-  float* s0 = s_smp[warp][0];
-  float* s1 = s_smp[warp][1];
-  float* s2 = s_smp[warp][2];
-  for (int u = lane; u < a.n_samp; u += 32) {
+  for (int u = lane; u < t.n_samp; u += 32) {
     const float k = offk[u], l = offl[u];
     const float syo = l * co + k * si;
     const float sxo = (-l) * si + k * co;
     const size_t p = sample_at(xf, yf, sxo, syo, sc, xmax, ymax, w);
     const float gx = __ldg(Lx + p), gy = __ldg(Ly + p);
-    s0[u] = __ldg(Lt + p);
-    s1[u] = gx * co + gy * si;
-    s2[u] = (-gx) * si + gy * co;
+    sm.smp[0][u] = __ldg(Lt + p);
+    sm.smp[1][u] = gx * co + gy * si;
+    sm.smp[2][u] = (-gx) * si + gy * co;
   }
   __syncwarp();
 
-  // Cell means: one lane per cell, members in increasing sample order.
-  float* mean = s_mean[warp];
-  for (int c = lane; c < a.n_cells; c += 32) {
+  // Cell means (mean_mat^T . samples): one lane per cell, a running sum
+  // over the cell's members in increasing sample order (the zero entries
+  // of mean_mat add nothing and are skipped).
+  for (int c = lane; c < t.n_cells; c += 32) {
     const float cw = cell_w[c];
     for (int ch = 0; ch < 3; ++ch) {
-      const float* smp = s_smp[warp][ch];
       float acc = 0.f;
-      for (int m = cell_start[c]; m < cell_start[c + 1]; ++m) acc = acc + smp[cell_mem[m]] * cw;
-      mean[ch * a.n_cells + c] = acc;
+      for (int m = cell_start[c]; m < cell_start[c + 1]; ++m) acc = acc + sm.smp[ch][cell_mem[m]] * cw;
+      sm.mean[ch * t.n_cells + c] = acc;
     }
   }
   __syncwarp();
 
   // 486 comparisons: bit i -> word i / 32, bit i % 32 (LSB-first bytes,
   // little-endian words).
-  for (int wd = 0; wd < a.n_words; ++wd) {
+  for (int wd = 0; wd < t.n_words; ++wd) {
     const int b = wd * 32 + lane;
-    const bool bit = b < a.n_bits && mean[bit_a[b]] > mean[bit_b[b]];
+    bool bit = false;
+    if (b < t.n_bits) {
+      const float ma = sm.mean[bit_a[b]], mb = sm.mean[bit_b[b]];
+      bit = ma > mb;  // = (ma - mb > 0): IEEE subtraction is exact in sign
+    }
     const unsigned word = __ballot_sync(FULL, bit);
-    if (lane == wd) a.desc[(size_t)kp * a.n_words + wd] = (int)word;
+    if (lane == wd) desc_out[(size_t)kp * t.n_words + wd] = (int)word;
   }
-  if (lane == 0) a.angle[kp] = angle;
+  if (lane == 0) angle_out[kp] = angle;
+}
+
+// Kernel 3: one warp per slot of the batch, per-octave level-major stacks.
+__global__ void __launch_bounds__(WARPS * 32) describe_kernel(DescArgs a) {
+  __shared__ SlotSmem smem[WARPS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kp = blockIdx.x * WARPS + warp;
+  if (kp >= a.n_kp) return;  // whole warp
+  const int* ki = a.kpi + 4 * kp;
+  if (ki[3] == 0) {
+    zero_slot(a.t, kp, lane, a.angle, a.desc);
+    return;  // whole warp
+  }
+  const int g = ki[0];
+  const int w = a.gw[g];
+  const size_t off = ((size_t)ki[1] * a.B + ki[2]) * (size_t)a.gh[g] * w;
+  describe_slot(a.t, a.lt[g] + off, a.lx[g] + off, a.ly[g] + off, w, a.kpf + 5 * kp,
+                smem[warp], lane, kp, a.angle, a.desc);
+}
+
+// Kernel 6: one warp per slot of one frame, padded (L, H0, W0) stacks read
+// in place (row stride W0; samples clip to the level's own extent).
+__global__ void __launch_bounds__(WARPS * 32) describe_single_kernel(SingleArgs a) {
+  __shared__ SlotSmem smem[WARPS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kp = blockIdx.x * WARPS + warp;
+  if (kp >= a.n_kp) return;  // whole warp
+  const int* ki = a.kpi + 2 * kp;
+  if (ki[1] == 0) {
+    zero_slot(a.t, kp, lane, a.angle, a.desc);
+    return;  // whole warp
+  }
+  const size_t off = (size_t)ki[0] * a.H0 * a.W0;
+  describe_slot(a.t, a.lt + off, a.lx + off, a.ly + off, a.W0, a.kpf + 5 * kp, smem[warp],
+                lane, kp, a.angle, a.desc);
+}
+
+static bool make_tables(Tables& t, const float* ftab, const int* itab, int n_ori, int n_win,
+                        int n_samp, int n_cells, int n_bits, int n_words) {
+  if (n_ori > MAX_ORI || n_samp > MAX_SAMP || n_cells > MAX_CELLS || n_words > 32) return false;
+  t = Tables{ftab, itab, n_ori, n_win, n_samp, n_cells, n_bits, n_words};
+  return true;
 }
 
 extern "C" int describe(const void* const* planes, const int* gh, const int* gw, int G, int B,
                         int n_kp, const float* kpf, const int* kpi, const float* ftab,
                         const int* itab, int n_ori, int n_win, int n_samp, int n_cells,
                         int n_bits, int n_words, float* angle, int* desc, void* stream) {
-  if (G > MAXG || n_ori > MAX_ORI || n_samp > MAX_SAMP || n_cells > MAX_CELLS || n_words > 32)
-    return (int)cudaErrorInvalidValue;
   DescArgs a{};
+  if (G > MAXG ||
+      !make_tables(a.t, ftab, itab, n_ori, n_win, n_samp, n_cells, n_bits, n_words))
+    return (int)cudaErrorInvalidValue;
   for (int g = 0; g < G; ++g) {
     a.lt[g] = (const float*)planes[3 * g];
     a.lx[g] = (const float*)planes[3 * g + 1];
@@ -232,18 +293,33 @@ extern "C" int describe(const void* const* planes, const int* gh, const int* gw,
   a.n_kp = n_kp;
   a.kpf = kpf;
   a.kpi = kpi;
-  a.ftab = ftab;
-  a.itab = itab;
-  a.n_ori = n_ori;
-  a.n_win = n_win;
-  a.n_samp = n_samp;
-  a.n_cells = n_cells;
-  a.n_bits = n_bits;
-  a.n_words = n_words;
   a.angle = angle;
   a.desc = desc;
   if (n_kp == 0) return 0;
   const int blocks = (n_kp + WARPS - 1) / WARPS;
   describe_kernel<<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int describe_single(const float* lt, const float* lx, const float* ly, int H0, int W0,
+                               int n_kp, const float* kpf, const int* kpi, const float* ftab,
+                               const int* itab, int n_ori, int n_win, int n_samp, int n_cells,
+                               int n_bits, int n_words, float* angle, int* desc, void* stream) {
+  SingleArgs a{};
+  if (!make_tables(a.t, ftab, itab, n_ori, n_win, n_samp, n_cells, n_bits, n_words))
+    return (int)cudaErrorInvalidValue;
+  a.lt = lt;
+  a.lx = lx;
+  a.ly = ly;
+  a.H0 = H0;
+  a.W0 = W0;
+  a.n_kp = n_kp;
+  a.kpf = kpf;
+  a.kpi = kpi;
+  a.angle = angle;
+  a.desc = desc;
+  if (n_kp == 0) return 0;
+  const int blocks = (n_kp + WARPS - 1) / WARPS;
+  describe_single_kernel<<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

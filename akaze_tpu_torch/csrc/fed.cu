@@ -24,6 +24,13 @@
 // bound by bytes (about 3 planes moved per FED sweep against ~17 flops per
 // pixel); fusing the sweeps with a widening halo is the next step.
 //
+// Kernel 5, fused_level, replaces fed_pallas.py :: fused_level_batched
+// (_level_kernel): one level of the per-level build for a batch, seed ->
+// Lsmooth, conductivity, the FED sweeps -> Lt, then Lx, Ly and Ldet, all
+// four written out (no score, sub-pixel or half-size fields).  It runs the
+// same level chain as kernel 2 (level_chain below), so it is bound by bytes
+// the same way: one seed read and four planes written is its floor.
+//
 // Numerics follow the reference exactly: every stage clamps to the plane
 // border at its own input, taps are summed in the golden order (vertical
 // pass, then horizontal; zero taps skipped; first term not added to zero),
@@ -319,6 +326,51 @@ __global__ void half_kernel(const float* __restrict__ lt, float* __restrict__ ou
   out[(size_t)blockIdx.z * h2 * w2 + (size_t)y * w2 + x] = 0.25f * (((a00 + a10) + a01) + a11);
 }
 
+// Scratch planes of one level chain, each (B, h, w).
+struct LevelScratch {
+  float *lsmooth, *g, *tmp, *lxr, *lyr;
+};
+
+// The chain of one level for the whole batch (kernels 2 and 5 share it):
+// Lt from the seed `src` (first: the seed itself, no FED; else G_1 blur,
+// conductivity, then ns FED sweeps ping-ponging through scratch so that
+// the last lands in lt), then Lx, Ly (sigma-scaled, outputs) and Ldet.
+static void level_chain(const float* src, const float* k, float* lt, float* lx, float* ly,
+                        float* ldet, const LevelScratch& sc, int B, int h, int w, bool first,
+                        int kind, int ns, const float* half_taus, int s, float sn, float swn,
+                        const Taps& t1, float s1n, float s1wn, cudaStream_t st) {
+  const size_t pl = (size_t)B * h * w;
+  dim3 blk(32, 8);
+  dim3 grd((w + 31) / 32, (h + 7) / 8, B);
+  dim3 tiles((w + BT_W - 1) / BT_W, (h + BT_H - 1) / BT_H, B);
+  const float* lsm;
+  if (first) {
+    // The seed is already G_sigma0 * img; Lsmooth == Lt, no FED.
+    cudaMemcpyAsync(lt, src, pl * sizeof(float), cudaMemcpyDeviceToDevice, st);
+    lsm = src;
+  } else {
+    blur_kernel<<<tiles, blk, 0, st>>>(src, sc.lsmooth, h, w, t1);
+    conductivity_kernel<<<grd, blk, 0, st>>>(sc.lsmooth, k, sc.g, h, w, s1n, s1wn, kind);
+    if (ns == 0) cudaMemcpyAsync(lt, src, pl * sizeof(float), cudaMemcpyDeviceToDevice, st);
+    const float* cur = src;
+    for (int j = 0; j < ns; ++j) {
+      float* dst = ((ns - 1 - j) % 2 == 0) ? lt : sc.tmp;
+      fed_sweep_kernel<<<grd, blk, 0, st>>>(cur, sc.g, dst, h, w, half_taus[j]);
+      cur = dst;
+    }
+    lsm = sc.lsmooth;
+  }
+  deriv1_kernel<<<grd, blk, 0, st>>>(lsm, sc.lxr, sc.lyr, lx, ly, h, w, s, sn, swn, (float)s);
+  deriv2_kernel<<<grd, blk, 0, st>>>(sc.lxr, sc.lyr, ldet, h, w, s, sn, swn, (float)(s * s));
+}
+
+static Taps make_taps(const float* taps, int n) {
+  Taps t{};
+  for (int i = 0; i < n; ++i) t.w[i] = taps[i];
+  t.n = n;
+  return t;
+}
+
 // One octave for the whole batch.  Outputs are level-major (n, B, h, w);
 // scratch planes are (B, h, w).  Per-level tables are host arrays:
 // n_sweeps[n], half_taus[sum n_sweeps] (float32(tau/2), level by level),
@@ -332,41 +384,19 @@ extern "C" int fused_octave(const float* seed, const float* k, float* lt, float*
                             const float* swn, const int* borders, float threshold,
                             const float* g1, int n1, float s1n, float s1wn, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  Taps t1{};
-  for (int i = 0; i < n1; ++i) t1.w[i] = g1[i];
-  t1.n = n1;
+  const Taps t1 = make_taps(g1, n1);
+  const LevelScratch sc{lsmooth, g, tmp, lxr, lyr};
   const size_t pl = (size_t)B * h * w;
   dim3 blk(32, 8);
   dim3 grd((w + 31) / 32, (h + 7) / 8, B);
-  dim3 tiles((w + BT_W - 1) / BT_W, (h + BT_H - 1) / BT_H, B);
   int tau_at = 0;
   for (int li = 0; li < n; ++li) {
     const float* src = li == 0 ? seed : lt + (li - 1) * pl;
-    float* lt_li = lt + li * pl;
-    const float* lsm;
-    if (first && li == 0) {
-      // Level 0: the seed is already G_sigma0 * img; Lsmooth == Lt, no FED.
-      cudaMemcpyAsync(lt_li, seed, pl * sizeof(float), cudaMemcpyDeviceToDevice, st);
-      lsm = seed;
-    } else {
-      blur_kernel<<<tiles, blk, 0, st>>>(src, lsmooth, h, w, t1);
-      conductivity_kernel<<<grd, blk, 0, st>>>(lsmooth, k, g, h, w, s1n, s1wn, kind);
-      const int ns = n_sweeps[li];
-      if (ns == 0) cudaMemcpyAsync(lt_li, src, pl * sizeof(float), cudaMemcpyDeviceToDevice, st);
-      const float* cur = src;
-      for (int j = 0; j < ns; ++j) {
-        // Ping-pong so that the last sweep lands in this level's output.
-        float* dst = ((ns - 1 - j) % 2 == 0) ? lt_li : tmp;
-        fed_sweep_kernel<<<grd, blk, 0, st>>>(cur, g, dst, h, w, half_taus[tau_at + j]);
-        cur = dst;
-      }
-      tau_at += ns;
-      lsm = lsmooth;
-    }
-    const int s = sigma_sizes[li];
-    deriv1_kernel<<<grd, blk, 0, st>>>(lsm, lxr, lyr, lx + li * pl, ly + li * pl, h, w, s, sn[li],
-                                       swn[li], (float)s);
-    deriv2_kernel<<<grd, blk, 0, st>>>(lxr, lyr, ldet, h, w, s, sn[li], swn[li], (float)(s * s));
+    const int ns = (first && li == 0) ? 0 : n_sweeps[li];
+    level_chain(src, k, lt + li * pl, lx + li * pl, ly + li * pl, ldet, sc, B, h, w,
+                first && li == 0, kind, ns, half_taus + tau_at, sigma_sizes[li], sn[li], swn[li],
+                t1, s1n, s1wn, st);
+    tau_at += ns;
     score_kernel<<<grd, blk, 0, st>>>(ldet, score + li * pl, sub + li * pl, h, w, borders[li],
                                       threshold);
     AKAZE_RETURN_IF_ERROR();
@@ -375,5 +405,22 @@ extern "C" int fused_octave(const float* seed, const float* k, float* lt, float*
     dim3 hg((w / 2 + 31) / 32, (h / 2 + 7) / 8, B);
     half_kernel<<<hg, blk, 0, st>>>(lt + (n - 1) * pl, half, h, w);
   }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- kernel 5
+
+// One level for the whole batch: seed (B, h, w) -> Lt, Lx, Ly, Ldet, each
+// (B, h, w).  half_taus[ns] are float32(tau/2) of this level's sweeps; s,
+// sn, swn its Scharr size and smoothing taps.  Scratch: five (B, h, w)
+// planes.
+extern "C" int fused_level(const float* seed, const float* k, float* lt, float* lx, float* ly,
+                           float* ldet, float* lsmooth, float* g, float* tmp, float* lxr,
+                           float* lyr, int B, int h, int w, int first, int kind, int ns,
+                           const float* half_taus, int s, float sn, float swn, const float* g1,
+                           int n1, float s1n, float s1wn, void* stream) {
+  level_chain(seed, k, lt, lx, ly, ldet, LevelScratch{lsmooth, g, tmp, lxr, lyr}, B, h, w,
+              first != 0, kind, first ? 0 : ns, half_taus, s, sn, swn, make_taps(g1, n1), s1n,
+              s1wn, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

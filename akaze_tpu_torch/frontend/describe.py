@@ -1,32 +1,48 @@
-"""Orientation + M-LDB description statics and stage (counterpart of the
-JAX package's `akaze_tpu/frontend/describe.py`).
+"""The describe stage (counterpart of the JAX package's
+`akaze_tpu/frontend/describe.py`): its statics, and the two ways it runs.
 
 Orientation: SURF-style dominant direction from Gaussian-weighted Lx/Ly
 samples on a discrete circle (109 offsets) and 42 sliding pi/3 windows.
 M-LDB: per-cell means of (Lt, rotated Lx, rotated Ly) over 2x2/3x3/4x4
 grids of a rotated pattern (441 unique offsets), compared pairwise into 486
 bits, packed LSB-first into 16 words.
+
+`describe_batched` reads `config.describe_backend` as the JAX package does
+on a TPU: "auto" and "fused" run kernel 3 (when M % 64 == 0); "xla" and
+"pallas" run the non-fused branch: the per-octave planes restacked into
+padded level-major stacks, keypoint slots cut into chunks of 256, chunks
+with no valid slot skipped, and for the live ones one (3, ph, pw) window
+per slot cut by kernel 7 and described in PyTorch (`_describe_chunk`,
+sampling by patch-local index where the JAX package used one-hot matmuls,
+and the library atan2).  The single-frame `describe` runs that branch by
+default and kernel 6 with backend="pallas".  The port zeroes the angle of
+every invalid slot, where the JAX non-fused branch leaves it unspecified.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
 import torch
 
 from akaze_tpu_torch.core.config import AkazeConfig
-from akaze_tpu_torch.frontend.scale_space import ScaleSpaceStatics
+from akaze_tpu_torch.core.types import Features, Keypoints
+from akaze_tpu_torch.frontend.scale_space import ScaleSpaceStatics, per_level_scale, round_half_up
+from akaze_tpu_torch.kernels.describe import describe as describe_fused
+from akaze_tpu_torch.kernels.describe import describe_from_samples, describe_plain, zero_invalid
+from akaze_tpu_torch.kernels.describe_single import describe_pallas, describe_pallas_plain
+from akaze_tpu_torch.kernels.fed import octave_groups
+from akaze_tpu_torch.kernels.patch import gather_patches, gather_patches_plain
+
+# Slots gathered and described together (at 64 x 64 patches, 1.6 GB of
+# patches per group).
+_GROUP_SLOTS = 32768
 
 
-def _round_half_up(x: torch.Tensor) -> torch.Tensor:
-    return torch.floor(x + 0.5).to(torch.int32)
-
-
-def _per_level_scale(ss_statics: ScaleSpaceStatics) -> np.ndarray:
-    """Reference `scale = max(1, round(0.5 * size / ratio))` per level."""
-    s = np.floor(0.5 * ss_statics.sizes / ss_statics.ratios + 0.5).astype(np.int32)
-    return np.maximum(s, 1)
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
 
 
 class DescribeStatics:
@@ -79,3 +95,148 @@ class DescribeStatics:
         self.all_offl = offs[:, 1]
         self.n_samples = n_unique
 
+        # Patch geometry of the non-fused describe: the worst-case reach of
+        # any sample (the M-LDB pattern or the orientation circle, plus
+        # rounding slack) sizes one (ph, pw) window per keypoint.
+        s_max = int(per_level_scale(ss_statics).max())
+        reach = int(math.ceil(p * s_max * math.sqrt(2.0))) + 2
+        self.reach = max(reach, 6 * s_max + 2)
+        self.ph = min(_round_up(2 * self.reach, 8), ss_statics.h0)
+        self.pw = min(_round_up(2 * self.reach, 64), ss_statics.w0)
+        self.chunk = 256  # keypoint slots per chunk; chunks with no valid slot are skipped
+
+
+
+def chunk_geometry(x, y, class_id, ss: ScaleSpaceStatics, ds: DescribeStatics) -> dict:
+    """Per-slot level geometry and patch origins of flat (N,) keypoint
+    fields: every clipped sample coordinate lands inside the (ph, pw)
+    window at (y0, x0)."""
+    dev = x.device
+    lvl = class_id.long()
+    table = lambda a: torch.as_tensor(a, device=dev)[lvl]
+    ratios = table(ss.ratios)
+    widths, heights = table(ss.widths), table(ss.heights)
+    xf, yf = x / ratios, y / ratios
+    zero = torch.zeros_like(widths)
+    y0 = torch.clamp(round_half_up(yf) - ds.ph // 2, min=zero, max=torch.clamp(heights - ds.ph, min=0))
+    x0 = torch.clamp(round_half_up(xf) - ds.pw // 2, min=zero, max=torch.clamp(widths - ds.pw, min=0))
+    return {"lvl": lvl, "scale": table(per_level_scale(ss)).to(torch.float32), "w": widths,
+            "h": heights, "xf": xf, "yf": yf, "y0": y0, "x0": x0}
+
+
+def _describe_chunk(geo: dict, patches: torch.Tensor, ds: DescribeStatics):
+    """Orientation + descriptor of N slots from their (N, 3, ph, pw)
+    windows: samples by patch-local index (the value the JAX package's
+    one-hot matmuls select, zero outside the window), the library atan2.
+    Returns (angles (N,), words (N, W) int32)."""
+    n, _, ph, pw = patches.shape
+    flat = patches.reshape(-1)
+    base = (torch.arange(n, device=patches.device) * 3)[:, None]
+    xf, yf, sc = geo["xf"][:, None], geo["yf"][:, None], geo["scale"][:, None]
+    ymax, xmax = (geo["h"] - 1)[:, None], (geo["w"] - 1)[:, None]
+
+    def sample(channels, offx, offy):
+        iy = torch.clamp(round_half_up(yf + offy * sc), min=torch.zeros_like(ymax), max=ymax) - geo["y0"][:, None]
+        ix = torch.clamp(round_half_up(xf + offx * sc), min=torch.zeros_like(xmax), max=xmax) - geo["x0"][:, None]
+        inside = (iy >= 0) & (iy < ph) & (ix >= 0) & (ix < pw)
+        pix = torch.clamp(iy, 0, ph - 1).long() * pw + torch.clamp(ix, 0, pw - 1).long()
+        zero = torch.zeros((), device=patches.device)
+        return [torch.where(inside, flat[(base + c) * (ph * pw) + pix], zero) for c in channels]
+
+    return describe_from_samples(sample, ds, patches.device, xla=True)
+
+
+def chunk_slots(kps: Keypoints, ds: DescribeStatics):
+    """(B, M) keypoint slots cut into chunks of `ds.chunk` per frame (the
+    last one padded with invalid slots): (B * nc, C) fields "x", "y",
+    "class_id", "valid", "frame", and the indices of the live chunks, those
+    with a valid slot (this reads the validity back to the host)."""
+    B, M = kps.x.shape
+    C = min(ds.chunk, M)
+    nc = (M + C - 1) // C
+    pad = nc * C - M
+    cut = lambda a, fill: torch.nn.functional.pad(a, (0, pad), value=fill).reshape(B * nc, C)
+    fields = {"x": cut(kps.x, 0.0), "y": cut(kps.y, 0.0), "class_id": cut(kps.class_id, 0),
+              "valid": cut(kps.valid, False)}
+    fields["frame"] = torch.arange(B, device=kps.x.device).repeat_interleave(nc)[:, None].expand(B * nc, C)
+    return fields, torch.nonzero(fields["valid"].any(dim=1)).flatten()
+
+
+def _describe_slots(kps: Keypoints, stacks: dict, ss: ScaleSpaceStatics, ds: DescribeStatics,
+                    plain: bool):
+    """The non-fused describe of (B, M) keypoint slots over Lt/Lx/Ly stacks
+    in any layout kernel 7 takes: dead chunks skipped, live ones gathered
+    and described in groups.  Returns (angles (B, M), words (B, M, W))
+    with invalid slots zero."""
+    B, M = kps.x.shape
+    fields, live = chunk_slots(kps, ds)
+    C = fields["x"].shape[1]
+    nwords = ds.config.descriptor_words
+    angles = torch.zeros(fields["x"].shape, dtype=torch.float32, device=kps.x.device)
+    words = torch.zeros(angles.shape + (nwords,), dtype=torch.int32, device=kps.x.device)
+    gather = gather_patches_plain if plain else gather_patches
+    group = max(1, _GROUP_SLOTS // C)
+    for g0 in range(0, live.numel(), group):
+        sel = live[g0 : g0 + group]
+        f = {k: v[sel].reshape(-1) for k, v in fields.items()}
+        geo = chunk_geometry(f["x"], f["y"], f["class_id"], ss, ds)
+        patches = gather(stacks, f["frame"], geo["lvl"], geo["y0"], geo["x0"], f["valid"], ds.ph, ds.pw)
+        a, w = _describe_chunk(geo, patches, ds)
+        angles[sel] = a.reshape(-1, C)
+        words[sel] = w.reshape(-1, C, nwords)
+    angles = angles.reshape(B, -1)[:, :M]
+    words = words.reshape(B, -1, nwords)[:, :M]
+    return zero_invalid(angles, words, kps.valid)
+
+
+def _describe_backend(config: AkazeConfig) -> str:
+    """"fused" (kernel 3; "auto" picks it, as on a TPU), "xla" or "pallas"
+    (both the non-fused branch in the batched describe)."""
+    b = config.describe_backend
+    if b == "auto":
+        return "fused"
+    if b in ("fused", "xla", "pallas"):
+        return b
+    raise ValueError(f"describe_backend must be auto, fused, xla or pallas, got {b!r}")
+
+
+def restack_levels(lvl_oct, ss: ScaleSpaceStatics) -> dict:
+    """Per-octave level-major (n, B, h, w) Lt/Lx/Ly planes -> padded
+    level-major (L, B, H0, W0) stacks, zeros outside each level (three
+    views of one (3, L, B, H0, W0) tensor)."""
+    B = lvl_oct[0]["Lt"].shape[1]
+    s3 = lvl_oct[0]["Lt"].new_zeros((3, ss.num_levels, B, ss.h0, ss.w0))
+    for (l0, n, h, w), o in zip(octave_groups(ss), lvl_oct):
+        for c, key in enumerate(("Lt", "Lx", "Ly")):
+            s3[c, l0 : l0 + n, :, :h, :w] = o[key]
+    return {"Lt": s3[0], "Lx": s3[1], "Ly": s3[2], "level_major": True}
+
+
+def describe_batched(kps: Keypoints, lvl_oct, ss: ScaleSpaceStatics, ds: DescribeStatics,
+                     plain: bool = False) -> Features:
+    """Description of (B, M) keypoints on the per-octave planes of the
+    batched build, on the branch `config.describe_backend` picks.
+    plain=True runs the plain twins on any device (for comparisons)."""
+    M = kps.x.shape[1]
+    if _describe_backend(ds.config) == "fused" and M % 64 == 0:
+        angles, descs = (describe_plain if plain else describe_fused)(kps, lvl_oct, ss, ds)
+    else:
+        angles, descs = _describe_slots(kps, restack_levels(lvl_oct, ss), ss, ds, plain)
+    return Features(dataclasses.replace(kps, angle=angles), descs)
+
+
+def describe(kps: Keypoints, stacks: dict, ss: ScaleSpaceStatics, ds: DescribeStatics,
+             backend: str = "xla", plain: bool = False) -> Features:
+    """Description of one frame's (M,) keypoints on its padded (L, H0, W0)
+    Lt/Lx/Ly stacks: backend "xla" is the non-fused branch (kernel 7
+    windows), "pallas" kernel 6.  plain=True runs the plain twins on any
+    device (for comparisons)."""
+    if backend == "pallas":
+        angles, descs = (describe_pallas_plain if plain else describe_pallas)(kps, stacks, ss, ds)
+    elif backend == "xla":
+        fields = dataclasses.replace(kps, **{f.name: getattr(kps, f.name)[None]
+                                             for f in dataclasses.fields(kps)})
+        angles, descs = (a[0] for a in _describe_slots(fields, stacks, ss, ds, plain))
+    else:
+        raise ValueError(f"describe backend must be xla or pallas, got {backend!r}")
+    return Features(dataclasses.replace(kps, angle=angles), descs)

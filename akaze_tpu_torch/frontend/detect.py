@@ -6,6 +6,10 @@ symmetric cross-level NMS suppresses a candidate P when some candidate Q on
 the same or an adjacent level lies within r = 0.5 * size[max(level_P,
 level_Q)] and beats P on (response, earlier level-major raster order); the
 global top-M of the survivors is refined from the packed sub-pixel field.
+`detect_dense` is the same selection on the padded (L, H0, W0) Ldet stacks
+of the per-level build (the JAX package's `detect` with cand=None): strict
+3x3 maxima above threshold inside each level's border, exact top-K per
+padded level plane, and the quadratic sub-pixel fit on Ldet itself.
 
 Every top-K here is exact and breaks ties by the lower index first, as
 `lax.top_k` does: each selection runs `torch.topk` on unique int64 keys
@@ -14,6 +18,8 @@ card pick the same slots.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -120,8 +126,50 @@ def subpixel_from_fields_oct(lvl, xi, yi, oct_fields, statics: ScaleSpaceStatics
     return xf, yf, keep
 
 
-def detect(cand: dict, oct_fields, statics: ScaleSpaceStatics) -> Keypoints:
-    """Candidates -> NMS -> global top-M -> sub-pixel; (B, M) keypoints."""
+def _neighbor_max_3x3(ldet: torch.Tensor) -> torch.Tensor:
+    """Max over the 8 spatial neighbours of each pixel of (..., h, w)
+    planes, the plane padded with the -3e38 sentinel (no edge replication)."""
+    p = torch.nn.functional.pad(ldet, (1, 1, 1, 1), value=NEG)
+    h, w = ldet.shape[-2], ldet.shape[-1]
+    out = None
+    for dy in range(3):
+        for dx in range(3):
+            if dy == 1 and dx == 1:
+                continue
+            s = p[..., dy : dy + h, dx : dx + w]
+            out = s if out is None else torch.maximum(out, s)
+    return out
+
+
+@functools.lru_cache(maxsize=8)
+def _interior(statics: ScaleSpaceStatics, device: torch.device) -> torch.Tensor:
+    """statics.interior, copied to the device once."""
+    return torch.as_tensor(statics.interior, device=device)
+
+
+def find_candidates(ldet: torch.Tensor, statics: ScaleSpaceStatics) -> dict:
+    """Per-level exact top-K of the strict 3x3 maxima above threshold and
+    inside the level border, over padded (B, L, H0, W0) Ldet stacks.
+    Returns (B, L, K) "resp", "yi", "xi", "flat" (index into the padded
+    plane) and "valid"."""
+    cfg = statics.config
+    K = cfg.per_level_candidates
+    B, L, h0, w0 = ldet.shape
+    cand = (ldet > cfg.detector_threshold) & (ldet > _neighbor_max_3x3(ldet)) & _interior(statics, ldet.device)
+    scores = torch.where(cand, ldet, torch.full_like(ldet, NEG)).reshape(B * L, h0 * w0)
+    k = min(K, h0 * w0)
+    resp, idx = _topk_stable(scores, k)
+    if k < K:
+        resp = torch.nn.functional.pad(resp, (0, K - k), value=NEG)
+        idx = torch.nn.functional.pad(idx, (0, K - k))
+    resp, idx = resp.reshape(B, L, K), idx.reshape(B, L, K).to(torch.int32)
+    yi = torch.div(idx, w0, rounding_mode="floor")
+    return {"resp": resp, "yi": yi, "xi": idx - yi * w0, "flat": idx, "valid": resp > NEG}
+
+
+def _top_m(cand: dict, statics: ScaleSpaceStatics):
+    """NMS, then the global top-M of the survivors: (response, level, yi,
+    xi), each (B, M), invalid slots at the -3e38 response."""
     cfg = statics.config
     valid = cross_level_nms(cand, statics)
     B, L, K = valid.shape
@@ -142,9 +190,11 @@ def detect(cand: dict, oct_fields, statics: ScaleSpaceStatics) -> Keypoints:
     class_id = torch.div(sel, npx, rounding_mode="floor")
     rem = sel - class_id * npx
     yi = torch.div(rem, w0, rounding_mode="floor")
-    xi = rem - yi * w0
-    xf, yf, keep = subpixel_from_fields_oct(class_id, xi, yi, oct_fields, statics)
-    dev = valid.device
+    return top_resp, class_id, yi, rem - yi * w0
+
+
+def _keypoints(top_resp, class_id, xf, yf, keep, statics: ScaleSpaceStatics) -> Keypoints:
+    dev = class_id.device
     cls = class_id.long()
     return Keypoints(
         x=xf,
@@ -156,3 +206,56 @@ def detect(cand: dict, oct_fields, statics: ScaleSpaceStatics) -> Keypoints:
         angle=torch.zeros_like(xf),
         valid=(top_resp > NEG) & keep,
     )
+
+
+def detect(cand: dict, oct_fields, statics: ScaleSpaceStatics) -> Keypoints:
+    """Candidates -> NMS -> global top-M -> sub-pixel from the per-octave
+    packed fields; (B, M) keypoints."""
+    top_resp, class_id, yi, xi = _top_m(cand, statics)
+    xf, yf, keep = subpixel_from_fields_oct(class_id, xi, yi, oct_fields, statics)
+    return _keypoints(top_resp, class_id, xf, yf, keep, statics)
+
+
+def subpixel_refine(lvl, yi, xi, ldet: torch.Tensor, statics: ScaleSpaceStatics):
+    """2-variable quadratic fit on padded (B, L, H0, W0) Ldet at selected
+    (B, M) keypoints; a fit with |offset| > 1 is rejected.  Returns
+    octave-0 (x, y) and the keep flag.  Indices read as JAX reads them
+    (a negative index counts from the end, then clamps); only invalid slots
+    ever reach past a level's border."""
+    B, L, h0, w0 = ldet.shape
+    frame = torch.arange(B, device=ldet.device)[:, None].expand_as(lvl)
+    flat = ldet.reshape(-1)
+
+    def index(i, n):
+        i = i.long()
+        return torch.clamp(torch.where(i < 0, i + n, i), 0, n - 1)
+
+    li = index(lvl, L)
+
+    def at(dy, dx):
+        return flat[((frame * L + li) * h0 + index(yi + dy, h0)) * w0 + index(xi + dx, w0)]
+
+    v = at(0, 0)
+    dxv = 0.5 * (at(0, 1) - at(0, -1))
+    dyv = 0.5 * (at(1, 0) - at(-1, 0))
+    dxx = at(0, 1) + at(0, -1) - 2.0 * v
+    dyy = at(1, 0) + at(-1, 0) - 2.0 * v
+    dxy = 0.25 * (at(1, 1) + at(-1, -1) - at(-1, 1) - at(1, -1))
+    det = dxx * dyy - dxy * dxy
+    tiny = torch.abs(det) < 1e-30
+    safe_det = torch.where(tiny, torch.ones_like(det), det)
+    ox = (-dxv * dyy + dyv * dxy) / safe_det
+    oy = (-dyv * dxx + dxv * dxy) / safe_det
+    keep = ~tiny & (torch.abs(ox) <= 1.0) & (torch.abs(oy) <= 1.0)
+    ratios = torch.as_tensor(statics.ratios, device=ldet.device)[li]
+    xf = (xi.to(torch.float32) + ox) * ratios
+    yf = (yi.to(torch.float32) + oy) * ratios
+    return xf, yf, keep
+
+
+def detect_dense(ldet: torch.Tensor, statics: ScaleSpaceStatics) -> Keypoints:
+    """Detection on padded (B, L, H0, W0) Ldet stacks: candidates -> NMS ->
+    global top-M -> sub-pixel fit on Ldet; (B, M) keypoints."""
+    top_resp, class_id, yi, xi = _top_m(find_candidates(ldet, statics), statics)
+    xf, yf, keep = subpixel_refine(class_id, yi, xi, ldet, statics)
+    return _keypoints(top_resp, class_id, xf, yf, keep, statics)

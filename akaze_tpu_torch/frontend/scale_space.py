@@ -165,3 +165,21 @@ class ScaleSpaceStatics:
         self.sigma_sizes = np.array([s.sigma_size for s in self.specs], np.int32)
         self.borders = np.array([s.border for s in self.specs], np.int32)
         self.sizes = (self.esigmas * config.derivative_factor).astype(np.float32)
+        # (L, H0, W0) mask of the padded stacks: inside each level's border.
+        ys = np.arange(self.h0)[None, :, None]
+        xs = np.arange(self.w0)[None, None, :]
+        b = self.borders[:, None, None]
+        self.interior = ((ys >= b) & (ys < self.heights[:, None, None] - b)
+                         & (xs >= b) & (xs < self.widths[:, None, None] - b))
+
+
+def round_half_up(x: torch.Tensor) -> torch.Tensor:
+    """floor(x + 0.5) as int32: the reference's sample-coordinate rounding."""
+    return torch.floor(x + 0.5).to(torch.int32)
+
+
+def per_level_scale(ss_statics: ScaleSpaceStatics) -> np.ndarray:
+    """Reference `scale = max(1, round(0.5 * size / ratio))` per level: the
+    descriptor's sampling step in level pixels."""
+    s = np.floor(0.5 * ss_statics.sizes / ss_statics.ratios + 0.5).astype(np.int32)
+    return np.maximum(s, 1)

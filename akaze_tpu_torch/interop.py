@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from akaze_tpu_torch.core.config import AkazeConfig, Diffusivity, MatchConfig
+from akaze_tpu_torch.core.device import resolve_device
 from akaze_tpu_torch.core.types import Features, Keypoints
 
 _KEYPOINT_FIELDS = tuple(f.name for f in dataclasses.fields(Keypoints))
@@ -47,9 +48,10 @@ def features_to_numpy(feats: Features) -> dict:
     return out
 
 
-def features_from_numpy(arrays: dict, device="cpu") -> Features:
-    """Features on `device` from numpy keypoint fields and uint32 (or
-    int32) descriptor words."""
+def features_from_numpy(arrays: dict, device="cuda") -> Features:
+    """Features on `device` (the card unless the caller asks for the CPU)
+    from numpy keypoint fields and uint32 (or int32) descriptor words."""
+    device = resolve_device(device)
     kp = {
         name: torch.from_numpy(np.array(arrays[name], _KEYPOINT_DTYPES[name])).to(device)
         for name in _KEYPOINT_FIELDS

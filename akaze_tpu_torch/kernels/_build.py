@@ -29,13 +29,16 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "akaze_tpu_torch"
-SOURCES = ("fed", "describe", "match")
+SOURCES = ("fed", "describe", "match", "patch")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
 )
 
-launches = {"base_stage": 0, "fused_octave": 0, "describe": 0, "match": 0}
+launches = {
+    "base_stage": 0, "fused_octave": 0, "describe": 0, "match": 0,
+    "fused_level": 0, "gather_patches": 0, "describe_pallas": 0,
+}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

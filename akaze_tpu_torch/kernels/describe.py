@@ -14,15 +14,18 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
 
 from akaze_tpu_torch.core.types import Keypoints
-from akaze_tpu_torch.frontend.describe import DescribeStatics, _per_level_scale, _round_half_up
-from akaze_tpu_torch.frontend.scale_space import ScaleSpaceStatics
+from akaze_tpu_torch.frontend.scale_space import ScaleSpaceStatics, per_level_scale, round_half_up
 from akaze_tpu_torch.kernels import _build
 from akaze_tpu_torch.kernels.fed import octave_groups
+
+if TYPE_CHECKING:  # frontend/describe.py imports this module
+    from akaze_tpu_torch.frontend.describe import DescribeStatics
 
 TWO_PI = float(np.float32(2.0 * math.pi))
 _PI = float(np.float32(math.pi))
@@ -74,7 +77,7 @@ def keypoint_geometry(kps: Keypoints, ss: ScaleSpaceStatics):
     yf = kps.y.reshape(-1) / table(ss.ratios, torch.float32)
     kpf = torch.stack([
         xf, yf,
-        table(_per_level_scale(ss), torch.float32),
+        table(per_level_scale(ss), torch.float32),
         table(ss.widths - 1, torch.float32),
         table(ss.heights - 1, torch.float32),
     ], dim=1)
@@ -91,8 +94,8 @@ def _sample(planes, kpf, kpi, offx, offy):
     the level: planes are per-group (n, B, h, w) stacks; offx/offy (N, S)
     or (S,).  Returns one (N, S) tensor per stack in `planes`' last axis."""
     xf, yf, sc = kpf[:, 0:1], kpf[:, 1:2], kpf[:, 2:3]
-    ix = torch.minimum(torch.clamp(_round_half_up(xf + offx * sc), min=0), kpf[:, 3:4].to(torch.int32))
-    iy = torch.minimum(torch.clamp(_round_half_up(yf + offy * sc), min=0), kpf[:, 4:5].to(torch.int32))
+    ix = torch.minimum(torch.clamp(round_half_up(xf + offx * sc), min=0), kpf[:, 3:4].to(torch.int32))
+    iy = torch.minimum(torch.clamp(round_half_up(yf + offy * sc), min=0), kpf[:, 4:5].to(torch.int32))
     grp, li, frame = kpi[:, 0:1].long(), kpi[:, 1:2].long(), kpi[:, 2:3].long()
     outs = None
     for g, stacks in enumerate(planes):
@@ -105,20 +108,50 @@ def _sample(planes, kpf, kpi, offx, offy):
     return outs
 
 
-def describe_plain(kps: Keypoints, lvl_oct, ss: ScaleSpaceStatics, ds: DescribeStatics):
-    """(angles (B, M) f32, descriptors (B, M, W) int32) in plain PyTorch."""
-    B, M = kps.x.shape
-    dev = kps.x.device
-    kpf, kpi = keypoint_geometry(kps, ss)
+@functools.lru_cache(maxsize=8)
+def _cell_members(ds: DescribeStatics):
+    """Per grid: the (C, m) member sample indices of its cells in increasing
+    order (the cells of a grid are equal squares) and the (C,) mean
+    weights, as csrc/describe.cu sums them."""
+    out = []
+    for grid in ds.grids:
+        mm = grid["mean_mat"]
+        idx = np.stack([np.nonzero(mm[:, c])[0] for c in range(mm.shape[1])])
+        out.append((idx, mm[idx[:, 0], np.arange(mm.shape[1])].astype(np.float32)))
+    return out
+
+
+def _cell_means_in_member_order(chans: torch.Tensor, idx, cw) -> torch.Tensor:
+    """(3, N, S) samples -> (3, N, C) cell means as kernels 3 and 6 sum
+    them: per cell, acc = acc + sample * weight over its members in
+    increasing sample order, from 0."""
+    idx, cw = torch.as_tensor(idx, device=chans.device), torch.as_tensor(cw, device=chans.device)
+    acc = torch.zeros(chans.shape[:2] + (idx.shape[0],), dtype=chans.dtype, device=chans.device)
+    for j in range(idx.shape[1]):
+        acc = acc + chans[:, :, idx[:, j]] * cw
+    return acc
+
+
+def describe_from_samples(sample, ds: DescribeStatics, dev: torch.device, xla: bool = False):
+    """Orientation + M-LDB of N keypoints from a sampler, in plain PyTorch.
+
+    sample(channels, offx, offy) returns, for each channel index (0 Lt,
+    1 Lx, 2 Ly), the (N, S) nearest-pixel samples at round_half_up(xf +
+    off * scale) of each keypoint, clipped to its level; offx/offy are (S,)
+    or (N, S).  By default the arithmetic of kernels 3 and 6: the Cephes
+    atan2 and cell means summed in member order.  xla=True is the JAX
+    package's XLA describe: torch.atan2 and cell means as one product with
+    the mean matrix.  A bit is set where mean_a > mean_b.
+    Returns (angles (N,), words (N, W) int32)."""
+    atan2 = torch.atan2 if xla else atan2_cephes
     t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
-    grads = [(o["Lx"], o["Ly"]) for o in lvl_oct]
 
     # Orientation.
-    sx_, sy_ = _sample(grads, kpf, kpi, t(ds.ori_di), t(ds.ori_dj))
+    sx_, sy_ = sample((1, 2), t(ds.ori_di), t(ds.ori_dj))
     w = t(ds.ori_w)
     rx = w * sx_
     ry = w * sy_
-    ang = mod_2pi(atan2_cephes(ry, rx))[:, None, :]  # (N, 1, S)
+    ang = mod_2pi(atan2(ry, rx))[:, None, :]  # (N, 1, S)
     lo, hi = t(ds.win_lo)[:, None], t(ds.win_hi)[:, None]
     wrap = torch.as_tensor(ds.win_wrap, device=dev)[:, None]
     inside = torch.where(wrap, (ang > lo) | (ang < hi - TWO_PI), (ang > lo) & (ang < hi))
@@ -127,7 +160,7 @@ def describe_plain(kps: Keypoints, lvl_oct, ss: ScaleSpaceStatics, ds: DescribeS
     sum_y = torch.where(inside, ry[:, None, :], zero).sum(-1)
     norm = sum_x * sum_x + sum_y * sum_y
     best = torch.argmax(norm, dim=-1, keepdim=True)  # first max
-    angle = mod_2pi(atan2_cephes(sum_y.gather(1, best)[:, 0], sum_x.gather(1, best)[:, 0]))
+    angle = mod_2pi(atan2(sum_y.gather(1, best)[:, 0], sum_x.gather(1, best)[:, 0]))
 
     # M-LDB.
     co = torch.cos(angle)[:, None]
@@ -135,29 +168,48 @@ def describe_plain(kps: Keypoints, lvl_oct, ss: ScaleSpaceStatics, ds: DescribeS
     offk, offl = t(ds.all_offk), t(ds.all_offl)
     syo = offl * co + offk * si
     sxo = -offl * si + offk * co
-    planes = [(o["Lt"], o["Lx"], o["Ly"]) for o in lvl_oct]
-    ri, gx, gy = _sample(planes, kpf, kpi, sxo, syo)
+    ri, gx, gy = sample((0, 1, 2), sxo, syo)
     dx = gx * co + gy * si
     dy = -gx * si + gy * co
+    chans = torch.stack([ri, dx, dy])
     bits = []
-    for grid in ds.grids:
-        mean_mat = t(grid["mean_mat"])
+    for grid, members in zip(ds.grids, _cell_members(ds)):
+        if xla:
+            means = torch.stack([ch @ t(grid["mean_mat"]) for ch in chans])
+        else:
+            means = _cell_means_in_member_order(chans, *members)
         pa = torch.as_tensor(grid["pa"], device=dev).long()
         pb = torch.as_tensor(grid["pb"], device=dev).long()
-        for ch in (ri, dx, dy):
-            means = ch @ mean_mat
-            bits.append(means[:, pa] > means[:, pb])
+        bits.extend(means[:, :, pa] > means[:, :, pb])
     allbits = torch.cat(bits, dim=1)
     nwords = ds.config.descriptor_words
     allbits = torch.nn.functional.pad(allbits, (0, nwords * 32 - allbits.shape[1]))
     weights = torch.tensor([1 << i for i in range(32)], dtype=torch.int64, device=dev)
     words = (allbits.reshape(-1, nwords, 32).long() * weights).sum(-1)
-    words = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+    return angle, torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
-    valid = kps.valid.reshape(-1)
-    angle = torch.where(valid, angle, torch.zeros_like(angle))
-    words = torch.where(valid[:, None], words, torch.zeros_like(words))
-    return angle.reshape(B, M), words.reshape(B, M, nwords)
+
+def zero_invalid(angle: torch.Tensor, words: torch.Tensor, valid: torch.Tensor):
+    """Angles and descriptor words of invalid slots set to zero."""
+    return (torch.where(valid, angle, torch.zeros_like(angle)),
+            torch.where(valid[..., None], words, torch.zeros_like(words)))
+
+
+_CHANNELS = ("Lt", "Lx", "Ly")
+
+
+def describe_plain(kps: Keypoints, lvl_oct, ss: ScaleSpaceStatics, ds: DescribeStatics):
+    """(angles (B, M) f32, descriptors (B, M, W) int32) in plain PyTorch."""
+    B, M = kps.x.shape
+    kpf, kpi = keypoint_geometry(kps, ss)
+
+    def sample(channels, offx, offy):
+        planes = [tuple(o[_CHANNELS[c]] for c in channels) for o in lvl_oct]
+        return _sample(planes, kpf, kpi, offx, offy)
+
+    angle, words = describe_from_samples(sample, ds, kps.x.device)
+    angle, words = zero_invalid(angle, words, kps.valid.reshape(-1))
+    return angle.reshape(B, M), words.reshape(B, M, -1)
 
 
 @functools.lru_cache(maxsize=8)
@@ -166,15 +218,12 @@ def _host_tables(ds: DescribeStatics):
     cells, bit_a, bit_b = [], [], []
     n_cells = sum(g["mean_mat"].shape[1] for g in ds.grids)
     c0 = 0
-    for grid in ds.grids:
-        mm = grid["mean_mat"]
-        for c in range(mm.shape[1]):
-            members = np.nonzero(mm[:, c])[0]
-            cells.append((members, mm[members[0], c]))
+    for grid, (idx, cw) in zip(ds.grids, _cell_members(ds)):
+        cells.extend(zip(idx, cw))
         for ch in range(3):
             bit_a.extend(ch * n_cells + c0 + grid["pa"])
             bit_b.extend(ch * n_cells + c0 + grid["pb"])
-        c0 += mm.shape[1]
+        c0 += len(cw)
     ftab = np.concatenate([
         ds.ori_di, ds.ori_dj, ds.ori_w, ds.win_lo, ds.win_hi,
         ds.win_wrap.astype(np.float32), ds.all_offk, ds.all_offl,

@@ -1,6 +1,9 @@
-"""Kernels 1 (`base_stage`) and 2 (`fused_octave`) with their plain PyTorch
-twins, the packed sub-pixel format and the batched scale-space builder
-(counterpart of the JAX package's `akaze_tpu/kernels/fed_pallas.py`).
+"""Kernels 1 (`base_stage`), 2 (`fused_octave`) and 5 (`fused_level`) with
+their plain PyTorch twins, the packed sub-pixel format and the two
+scale-space builders (counterpart of the JAX package's
+`akaze_tpu/kernels/fed_pallas.py`): the batched per-octave build of the
+main path, and the per-level build (kernel 1, then kernel 5 once per level)
+behind the single-image `extract_fn`.
 
 Each wrapper runs its plain twin for CPU tensors and launches its CUDA
 kernel (`csrc/fed.cu`) for CUDA tensors; there is no fallback between the
@@ -162,19 +165,10 @@ def fused_octave_plain(seed, k, specs, diffusivity: Diffusivity, first: bool,
     """One octave for a batch: seed (B, h, w), k (B,) -> level-major
     (n, B, h, w) Lt, Lx, Ly, score (f32), sub (int32), and the next
     octave's seed (B, h//2, w//2) or None."""
-    kb = k.reshape(-1, 1, 1)
     x = seed
     lts, lxs, lys, scores, subs = [], [], [], [], []
     for li, spec in enumerate(specs):
-        if first and li == 0:
-            lsmooth = x
-        else:
-            lsmooth = gaussian_blur(x, 1.0)
-            gx = scharr(lsmooth, 1, 0, 1)
-            gy = scharr(lsmooth, 0, 1, 1)
-            g = conductivity(gx, gy, kb, diffusivity)
-            x = fed_cycle(x, g, spec.taus)
-        lx, ly, ldet = detector_response_level(lsmooth, spec.sigma_size)
+        x, lx, ly, ldet = fused_level_batched_plain(x, k, spec, diffusivity, first and li == 0)
         score, sub = score_fields_plain(ldet, int(spec.border), threshold)
         lts.append(x)
         lxs.append(lx)
@@ -233,6 +227,81 @@ def fused_octave(seed, k, specs, diffusivity: Diffusivity, first: bool,
     _build.check("fed", err, "fused_octave")
     _build.launches["fused_octave"] += 1
     return lt, lx, ly, score, sub, half
+
+
+# ------------------------------------------------------------------ kernel 5
+
+
+def fused_level_batched_plain(seed, k, spec, diffusivity: Diffusivity, first_level: bool = False):
+    """One level for a batch: seed (B, h, w) — the sigma0 blur at level 0
+    (first_level), else the previous level's Lt, half sized at an octave
+    change — and k (B,) -> (Lt, Lx, Ly, Ldet), each (B, h, w)."""
+    if first_level:
+        lsmooth = lt = seed
+    else:
+        lsmooth = gaussian_blur(seed, 1.0)
+        g = conductivity(scharr(lsmooth, 1, 0, 1), scharr(lsmooth, 0, 1, 1), k.reshape(-1, 1, 1), diffusivity)
+        lt = fed_cycle(seed, g, spec.taus)
+    return (lt, *detector_response_level(lsmooth, spec.sigma_size))
+
+
+def fused_level_batched(seed, k, spec, diffusivity: Diffusivity, first_level: bool = False):
+    """Kernel 5 on CUDA tensors (the level chain of kernel 2 with Ldet
+    written out), its plain twin on CPU tensors."""
+    if seed.device.type == "cpu":
+        return fused_level_batched_plain(seed, k, spec, diffusivity, first_level)
+    _build.require_cuda(seed, "fused_level")
+    _check_planes(seed, "fused_level")
+    if k.dtype != torch.float32 or k.shape != seed.shape[:1] or k.device != seed.device:
+        raise ValueError("fused_level: k must be a float32 (B,) tensor on the seed's device")
+    k = k.contiguous()
+    B, h, w = seed.shape
+    lt, lx, ly, ldet = (torch.empty_like(seed) for _ in range(4))
+    scratch = [torch.empty_like(seed) for _ in range(5)]  # lsmooth, g, tmp, lxr, lyr
+    half_taus = [float(np.float32(0.5 * t)) for t in spec.taus]
+    _, smooth = scharr_kernels(spec.sigma_size)
+    g1 = gaussian_kernel(1.0)
+    _, s1 = scharr_kernels(1)
+    fn = _build.function("fed", "fused_level", [
+        _P, _P, _P, _P, _P, _P,  # seed, k, lt, lx, ly, ldet
+        _P, _P, _P, _P, _P,  # scratch
+        _I, _I, _I, _I, _I, _I, _FP,  # B, h, w, first, kind, sweeps, half taus
+        _I, _F, _F, _FP, _I, _F, _F, _P,  # Scharr size and taps, G_1 taps, sigma-1 Scharr taps, stream
+    ])
+    with torch.cuda.device(seed.device):
+        err = fn(seed.data_ptr(), k.data_ptr(), lt.data_ptr(), lx.data_ptr(), ly.data_ptr(), ldet.data_ptr(),
+                 *(t.data_ptr() for t in scratch), B, h, w, int(first_level), _DIFFUSIVITY_CODE[diffusivity],
+                 len(half_taus), (_F * max(1, len(half_taus)))(*half_taus),
+                 spec.sigma_size, float(smooth[0]), float(smooth[len(smooth) // 2]),
+                 (_F * len(g1))(*g1), len(g1), float(s1[0]), float(s1[1]), _build.stream_of(seed))
+    _build.check("fed", err, "fused_level")
+    _build.launches["fused_level"] += 1
+    return lt, lx, ly, ldet
+
+
+def build_scale_space_levels(imgs: torch.Tensor, statics, plain: bool = False) -> dict:
+    """The per-level scale space of (B, H, W) frames (the JAX package's
+    per-level `build_scale_space`) through kernel 1, the contrast factor and
+    one kernel 5 launch per level: padded frame-major (B, L, H0, W0) stacks
+    "Lt", "Lx", "Ly", "Ldet" with zeros outside each level.  plain=True
+    runs the plain twins on any device: the plain per-level build."""
+    config: AkazeConfig = statics.config
+    specs = statics.specs
+    base = base_stage_plain if plain else base_stage
+    level = fused_level_batched_plain if plain else fused_level_batched
+    seed, modg = base(imgs, float(config.base_scale_offset))
+    k = contrast_factor_from_modg(modg, config)
+    B, L = imgs.shape[0], len(specs)
+    stacks = {key: imgs.new_zeros((B, L, statics.h0, statics.w0)) for key in ("Lt", "Lx", "Ly", "Ldet")}
+    for i, spec in enumerate(specs):
+        if i > 0 and spec.octave > specs[i - 1].octave:
+            seed = half_size(seed)
+            k = k * config.contrast_octave_decay
+        outs = level(seed.contiguous(), k, spec, config.diffusivity, i == 0)
+        for key, out in zip(("Lt", "Lx", "Ly", "Ldet"), outs):
+            stacks[key][:, i, : spec.height, : spec.width] = out
+        seed = outs[0]
+    return stacks
 
 
 # ------------------------------------------------------------------ builder

@@ -4,11 +4,16 @@
     python3 chip_smoke.py [--batch 128] [--reps 3]
 
 1. Prints the card (nvidia-smi name and power limit), the torch / CUDA /
-   nvcc versions, and builds the four kernels from akaze_tpu_torch/csrc
+   nvcc versions, and builds the seven kernels from akaze_tpu_torch/csrc
    (all nvcc processes in parallel), timing the build.
 2. Holds each kernel against its plain PyTorch twin on the card, on the
-   main path's inputs (batch VGA frames), with the stated tolerances, and
-   times both.
+   inputs its path gives it (kernels 1-4 and 7: batch VGA frames; kernels 5
+   and 6: single VGA frames of the per-level path), with the stated
+   tolerances, and times both.  A kernel's `ms` is the device time of its
+   __global__ functions under torch.profiler (mean of 3 calls); the CUDA
+   event time around its wrapper, host work included, is `wrapper_ms`
+   (kernel 7 is also timed beside one advanced-indexing call that cuts the
+   same patches).
 3. Drives the main path through its public entry points at full width:
    extract_batch on batch x 640x480 frames with the default AkazeConfig,
    then consecutive-pair match with the default MatchConfig; 1 warm-up and
@@ -17,8 +22,14 @@
    One more batch runs under torch.profiler: device time by kernel, split
    into the kernels of akaze_tpu_torch/csrc and PyTorch ops, and the
    device's idle share of that profiled batch.
-4. Runs the whole path at batch 2 through the kernels and through the plain
-   twins, both on the card, and holds them to the slice gates.
+   Then path A, the same with AkazeConfig(describe_backend="xla") (the
+   chunked describe through kernel 7), timed the same way, and path B,
+   extract_fn on single VGA frames (kernels 1, 5 and 7), then
+   describe(backend="pallas") (kernel 6) on the same frames, each with its
+   own launch counts; one path-B frame runs under torch.profiler.
+4. Runs the three paths at a small size through the kernels and through
+   the plain twins, both on the card, and holds them to the slice gates
+   (paths A and B: equal keypoints and descriptors).
 
 Prints a JSON line of per-kernel numbers, the card line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
@@ -64,7 +75,8 @@ def nvcc_version(nvcc: str) -> str:
 
 
 def timed(torch, fn, reps: int = 3):
-    """Median device time (ms) of fn() over reps runs, after one warm-up."""
+    """Median CUDA-event time (ms) around fn() over reps runs, after one
+    warm-up: device time plus whatever host work holds the stream."""
     fn()
     times = []
     for _ in range(reps):
@@ -91,23 +103,27 @@ def _pairs(feats):
     return d[:-1], v[:-1], d[1:], v[1:]
 
 
-def profile_batch(torch, root: Path, step) -> None:
-    """Run step() once under torch.profiler and print its device time by
-    kernel: the __global__ functions of akaze_tpu_torch/csrc against
-    PyTorch's ops, and the idle share of the profiled batch."""
-    from torch.profiler import ProfilerActivity, profile
-
+def csrc_kernels(root: Path) -> set:
+    """Names of the __global__ functions of akaze_tpu_torch/csrc."""
     ours = set()
     for src in sorted((root / "akaze_tpu_torch" / "csrc").glob("*.cu")):
         ours.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
                                src.read_text()))
+    return ours
+
+
+def profiled(torch, step):
+    """Run step() under torch.profiler: (wall ms, [(device ms, calls,
+    kernel name)] largest first).  Device-side events only: the aten
+    operator rows carry the same time again."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # Device-side events only: the aten operator rows carry the same time again.
     rows = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -118,13 +134,33 @@ def profile_batch(torch, root: Path, step) -> None:
         if dev_us > 0:
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
+    return wall_ms, rows
+
+
+def kernel_device_ms(torch, ours: set, fn, reps: int = 3) -> float:
+    """Device time (ms) of the csrc __global__ functions that one fn()
+    launches: their sum under the profiler over reps calls (after one
+    warm-up), divided by reps."""
+    fn()
+    _, rows = profiled(torch, lambda: [fn() for _ in range(reps)])
+    t = sum(ms for ms, _, name in rows if name.split("(")[0] in ours) / reps
+    if not t > 0:
+        fail("the profiler saw no device time in the csrc kernels")
+    return t
+
+
+def profile_step(torch, ours: set, what: str, step) -> None:
+    """Run step() once under torch.profiler and print its device time by
+    kernel: the __global__ functions of akaze_tpu_torch/csrc against
+    PyTorch's ops, and the idle share of the profiled step."""
+    wall_ms, rows = profiled(torch, step)
     busy_ms = sum(r[0] for r in rows)
     if not busy_ms:
-        print(f"profiled batch: wall {wall_ms:.3f} ms, device time not measured (the profiler saw none)",
+        print(f"profiled {what}: wall {wall_ms:.3f} ms, device time not measured (the profiler saw none)",
               flush=True)
         return
     mine = sum(t for t, _, name in rows if name.split("(")[0] in ours)
-    print(f"profiled batch: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
+    print(f"profiled {what}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f} (under the profiler); {mine:.3f} ms in the "
           f"{len(ours)} kernels of akaze_tpu_torch/csrc, {busy_ms - mine:.3f} ms in PyTorch ops",
           flush=True)
@@ -151,16 +187,21 @@ def main() -> int:
     sys.path.insert(0, str(root))
     try:
         from akaze_tpu_torch.core.config import AkazeConfig, MatchConfig
-        from akaze_tpu_torch.frontend.detect import detect, find_candidates_oct
-        from akaze_tpu_torch.frontend.pipeline import _statics, extract_batch, extract_batch_fn
-        from akaze_tpu_torch.frontend.scale_space import contrast_factor_from_modg
+        from akaze_tpu_torch.frontend import describe as fdescribe
+        from akaze_tpu_torch.frontend.detect import detect, detect_dense, find_candidates_oct
+        from akaze_tpu_torch.frontend.pipeline import (
+            _statics, extract_batch, extract_batch_fn, extract_fn,
+        )
+        from akaze_tpu_torch.frontend.scale_space import contrast_factor_from_modg, half_size
         from akaze_tpu_torch.kernels import _build
         from akaze_tpu_torch.kernels.describe import describe, describe_plain
+        from akaze_tpu_torch.kernels.describe_single import describe_pallas, describe_pallas_plain
         from akaze_tpu_torch.kernels.fed import (
-            base_stage, base_stage_plain, fused_octave, fused_octave_plain, octave_groups,
-            unpack_sub,
+            base_stage, base_stage_plain, build_scale_space_levels, fused_level_batched,
+            fused_level_batched_plain, fused_octave, fused_octave_plain, octave_groups, unpack_sub,
         )
         from akaze_tpu_torch.kernels.match import match_reduce, match_reduce_plain
+        from akaze_tpu_torch.kernels.patch import gather_patches, gather_patches_plain
         from akaze_tpu_torch.matching.hamming import match, match_fn
         from akaze_tpu_torch.utils.synthetic import video_sequence
     except ImportError as e:
@@ -178,12 +219,24 @@ def main() -> int:
 
     B, H, W = args.batch, 480, 640
     config, mcfg = AkazeConfig(), MatchConfig()
+    cfg_a = AkazeConfig(describe_backend="xla")  # path A
     ss, ds = _statics(W, H, config)
     groups = octave_groups(ss)
     px = B * H * W
     results = {}
 
+    ours = csrc_kernels(root)
+
+    def times(fn):
+        """The kernel's device time under the profiler and the event time
+        around its wrapper."""
+        return {"ms": kernel_device_ms(torch, ours, fn), "wrapper_ms": timed(torch, fn)}
+
     def record(name, **kw):
+        t, by = kw["bound"]
+        print(f"  {name}: device {kw['ms']:.4f} ms (wrapper {kw['wrapper_ms']:.4f} ms), bound {t:.4f} ms "
+              f"({by}), plain {kw['plain_ms']:.3f} ms, library "
+              f"{'-' if kw.get('library_ms') is None else format(kw['library_ms'], '.3f')} ms", flush=True)
         results[name] = kw
 
     # ------------------------------------------------------------ phase 2
@@ -198,20 +251,21 @@ def main() -> int:
     print(f"base_stage   max |err| seed/modg {err1:.3e} (tol 2e-5)", flush=True)
     if not err1 <= 2e-5:
         fail("base_stage disagrees with its plain twin")
-    ms = timed(torch, lambda: base_stage(imgs, sigma0))
+    tm1 = times(lambda: base_stage(imgs, sigma0))
     plain_ms = timed(torch, lambda: base_stage_plain(imgs, sigma0), reps=1)
     # 1 plane read, 2 written; ~72 flops/px (sigma0 blur 34, G_1 blur 18,
     # two Scharr 16, magnitude 4).
     bnd = bound_ms(3 * 4 * px, 72 * px)
     record("base_stage", source="akaze_tpu_torch/csrc/fed.cu",
-           replaces="akaze_tpu/kernels/fed_pallas.py:440", max_abs_err=err1, ms=ms,
+           replaces="akaze_tpu/kernels/fed_pallas.py:440", max_abs_err=err1, **tm1,
            plain_ms=plain_ms, bound=bnd)
 
     # Kernel 2, one entry per octave, each fed the same seed and k.
     k = contrast_factor_from_modg(modg_p, config)
     seed = seed_p
     err2 = 0.0
-    ms2 = plain2 = 0.0
+    tm2 = {"ms": 0.0, "wrapper_ms": 0.0}
+    plain2 = 0.0
     nbytes2 = nops2 = 0.0
     oct_p = []
     for oi, (l0, n, h, w) in enumerate(groups):
@@ -250,7 +304,8 @@ def main() -> int:
         print(f"fused_octave octave {oi} ({h}x{w}, {n} levels, "
               f"{sum(len(s.taus) for s in specs)} FED sweeps): Lt/Lx/Ly/score/half max |err| "
               f"{err2:.3e}, {int(cand.sum())} candidates, sub max |err| {esub:.2e}", flush=True)
-        ms2 += timed(torch, lambda: fused_octave(*argv))
+        for key, val in times(lambda: fused_octave(*argv)).items():
+            tm2[key] += val
         plain2 += timed(torch, lambda: fused_octave_plain(*argv), reps=1)
         pl = B * h * w
         nbytes2 += 4 * pl * (1 + 5 * n) + (4 * pl // 4 if argv[-1] else 0)
@@ -262,7 +317,7 @@ def main() -> int:
         oct_p.append(ref)
         seed = ref[5]
     record("fused_octave", source="akaze_tpu_torch/csrc/fed.cu",
-           replaces="akaze_tpu/kernels/fed_pallas.py:365", max_abs_err=err2, ms=ms2,
+           replaces="akaze_tpu/kernels/fed_pallas.py:365", max_abs_err=err2, **tm2,
            plain_ms=plain2, bound=bound_ms(nbytes2, nops2))
 
     # Kernel 3 on the plain twins' stacks and keypoints.
@@ -282,7 +337,7 @@ def main() -> int:
         fail("describe disagrees with its plain twin")
     if (desc_k[~v] != 0).any() or (ang_k[~v] != 0).any():
         fail("describe wrote non-zero output to invalid slots")
-    ms3 = timed(torch, lambda: describe(kps, lvl_oct, ss, ds))
+    tm3 = times(lambda: describe(kps, lvl_oct, ss, ds))
     plain3 = timed(torch, lambda: describe_plain(kps, lvl_oct, ss, ds), reps=1)
     nv = int(v.sum())
     n_samples = 2 * len(ds.ori_di) + 3 * ds.n_samples
@@ -291,7 +346,7 @@ def main() -> int:
     # 3.3k, windows 13.7k, M-LDB sampling 6.2k, cell means 7.4k, bits 0.5k).
     nbytes3 = 4 * (nv * n_samples + B * ss.config.max_keypoints * (9 + 17))
     record("describe", source="akaze_tpu_torch/csrc/describe.cu",
-           replaces="akaze_tpu/kernels/describe_fused.py:562", max_abs_err=err3, ms=ms3,
+           replaces="akaze_tpu/kernels/describe_fused.py:562", max_abs_err=err3, **tm3,
            plain_ms=plain3, bound=bound_ms(nbytes3, 31_000 * nv))
 
     # Kernel 4 on consecutive pairs of the plain descriptors.
@@ -303,58 +358,178 @@ def main() -> int:
         if not torch.equal(g, r):
             fail(f"match_reduce {name} differs from its plain twin (exact equality required)")
     print(f"match_reduce {B - 1} pairs: all five vectors exactly equal", flush=True)
-    ms4 = timed(torch, lambda: match_reduce(da, va, db, vb))
+    tm4 = times(lambda: match_reduce(da, va, db, vb))
     plain4 = timed(torch, lambda: match_reduce_plain(da, va, db, vb), reps=1)
     pops = float((va.sum(1).double() * vb.sum(1).double()).sum().item()) * 16
     record("match", source="akaze_tpu_torch/csrc/match.cu",
-           replaces="akaze_tpu/kernels/match_pallas.py:95", max_abs_err=0.0, ms=ms4,
+           replaces="akaze_tpu/kernels/match_pallas.py:95", max_abs_err=0.0, **tm4,
            plain_ms=plain4, bound=bound_ms(4 * (da.numel() + db.numel()), pops, POPC_OPS_PER_S))
-    del imgs, seed_k, modg_k, seed_p, modg_p, oct_p, lvl_oct, fields, kps, got, ref
+
+    # Kernel 7 on the live chunks of path A's describe at this batch: the
+    # per-octave planes restacked and the chunk slots cut as the chunked
+    # describe cuts them.  It copies, so it must equal its twin bit for bit.
+    _, ds_a = _statics(W, H, cfg_a)
+    stacks_a = fdescribe.restack_levels(lvl_oct, ss)
+    slots, live = fdescribe.chunk_slots(kps, ds_a)
+    f7 = {key: val[live].reshape(-1) for key, val in slots.items()}
+    geo = fdescribe.chunk_geometry(f7["x"], f7["y"], f7["class_id"], ss, ds_a)
+    ph, pw = ds_a.ph, ds_a.pw
+    argv7 = (stacks_a, f7["frame"], geo["lvl"], geo["y0"], geo["x0"], f7["valid"], ph, pw)
+    got7 = gather_patches(*argv7)
+    if not torch.equal(got7, gather_patches_plain(*argv7)):
+        fail("gather_patches differs from its plain twin (exact equality required)")
+    n7, nv7 = f7["valid"].numel(), int(f7["valid"].sum())
+    print(f"gather_patches {live.numel()} live chunks, {n7} slots ({nv7} valid) of 3 x {ph}x{pw}: "
+          f"equal to its plain twin bit for bit", flush=True)
+    tm7 = times(lambda: gather_patches(*argv7))
+    plain7 = timed(torch, lambda: gather_patches_plain(*argv7), reps=1)
+    # The yardstick: one advanced-indexing call cutting the same windows
+    # from one (3, L, B, H0, W0) stack with broadcast index tensors.
+    s3 = torch.stack([stacks_a[key] for key in ("Lt", "Lx", "Ly")])
+    idx7 = (torch.arange(3, device=dev)[None, :, None, None], geo["lvl"].long()[:, None, None, None],
+            f7["frame"].long()[:, None, None, None],
+            (geo["y0"].long()[:, None] + torch.arange(ph, device=dev))[:, None, :, None],
+            (geo["x0"].long()[:, None] + torch.arange(pw, device=dev))[:, None, None, :])
+    if not torch.equal(s3[idx7][f7["valid"]], got7[f7["valid"]]):
+        fail("the advanced-indexing yardstick cuts other windows than gather_patches")
+    lib7 = timed(torch, lambda: s3[idx7])
+    # Bytes: the windows of valid slots overlap (a deep level's windows all
+    # lie in one 64 x 80 region of each frame), so the reads are the union
+    # of the windows over the (L, B, H0, W0) stacks, 3 channels; every slot
+    # writes its 3 x ph x pw window and reads 5 index words.
+    v7 = f7["valid"]
+    cover = torch.zeros(s3.shape[1:], dtype=torch.bool, device=dev)
+    cover[geo["lvl"].long()[v7][:, None, None], f7["frame"].long()[v7][:, None, None],
+          (geo["y0"].long()[v7][:, None] + torch.arange(ph, device=dev))[:, :, None],
+          (geo["x0"].long()[v7][:, None] + torch.arange(pw, device=dev))[:, None, :]] = True
+    read7 = int(cover.sum()) * 3 * 4
+    print(f"  gather_patches reads {read7 / 1e9:.4f} GB (the union of the windows; "
+          f"{nv7 * 3 * ph * pw * 4 / 1e9:.4f} GB counted window by window)", flush=True)
+    del cover
+    record("gather_patches", source="akaze_tpu_torch/csrc/patch.cu",
+           replaces="akaze_tpu/kernels/patch_pallas.py:173", max_abs_err=0.0, **tm7, plain_ms=plain7,
+           library_ms=lib7, bound=bound_ms(read7 + n7 * 3 * ph * pw * 4 + 5 * 4 * n7, 0))
+    del imgs, seed_k, modg_k, seed_p, modg_p, oct_p, lvl_oct, fields, kps, got, ref, stacks_a, s3, got7
+    torch.cuda.empty_cache()
+
+    # Kernels 5 and 6 on single VGA frames, path B's shapes.
+    frames5 = torch.from_numpy(video_sequence(4, H, W, seed=200)).to(dev)
+    print(f"\n== kernels 5 and 6 against their plain twins on the card ({W}x{H} frames)", flush=True)
+    # Kernel 5 on all levels of 4 frames, each level fed the plain chain's seed.
+    seed5, modg5 = base_stage_plain(frames5, sigma0)
+    k5 = contrast_factor_from_modg(modg5, config)
+    argv5, err5 = [], 0.0
+    for i, spec in enumerate(ss.specs):
+        if i > 0 and spec.octave > ss.specs[i - 1].octave:
+            seed5, k5 = half_size(seed5).contiguous(), k5 * config.contrast_octave_decay
+        a5 = (seed5, k5, spec, config.diffusivity, i == 0)
+        got = fused_level_batched(*a5)
+        ref = fused_level_batched_plain(*a5)
+        for name, g, r in zip(("Lt", "Lx", "Ly", "Ldet"), got, ref):
+            e = (g - r).abs().max().item()
+            err5 = max(err5, e)
+            if not e <= 2e-5:
+                fail(f"fused_level level {i} {name} max |err| {e:.3e} > 2e-5")
+        argv5.append(a5)
+        seed5 = ref[0]
+    print(f"fused_level  {len(argv5)} levels x 4 frames: Lt/Lx/Ly/Ldet max |err| {err5:.3e} (tol 2e-5)",
+          flush=True)
+    one5 = [(a[0][:1].contiguous(), a[1][:1].contiguous(), *a[2:]) for a in argv5]
+    tm5 = times(lambda: [fused_level_batched(*a) for a in one5])
+    plain5 = timed(torch, lambda: [fused_level_batched_plain(*a) for a in one5], reps=1)
+    px5 = [sp.width * sp.height for sp in ss.specs]
+    # Per level: seed read, 4 planes written; first derivatives 18 and
+    # second 31 flops/px, plus G_1 blur 18, conductivity 22 and 17 per FED
+    # sweep past level 0.
+    ops5 = sum(p * (49 + (0 if i == 0 else 40 + 17 * len(sp.taus)))
+               for i, (p, sp) in enumerate(zip(px5, ss.specs)))
+    record("fused_level", source="akaze_tpu_torch/csrc/fed.cu",
+           replaces="akaze_tpu/kernels/fed_pallas.py:240", max_abs_err=err5, **tm5, plain_ms=plain5,
+           bound=bound_ms(5 * 4 * sum(px5), ops5))
+
+    # Kernel 6 on the per-level path's keypoints of each of the 4 frames.
+    st6 = build_scale_space_levels(frames5, ss, plain=True)
+    kps6 = detect_dense(st6["Ldet"], ss)
+    err6, n6, argv6 = 0.0, 0, []
+    for f in range(4):
+        kp = kps6.index(f)
+        stacks6 = {key: st6[key][f] for key in ("Lt", "Lx", "Ly")}
+        a6 = (kp, stacks6, ss, ds)
+        ang_k, desc_k = describe_pallas(*a6)
+        ang_p, desc_p = describe_pallas_plain(*a6)
+        v = kp.valid
+        d_ang = (ang_k - ang_p).abs()[v]
+        err6 = max(err6, torch.minimum(d_ang, 2 * math.pi - d_ang).max().item())
+        n6 += int(v.sum())
+        if not torch.equal(desc_k, desc_p):
+            fail(f"describe_pallas frame {f}: descriptors differ from its plain twin (bit-equality required)")
+        if (ang_k[~v] != 0).any():
+            fail("describe_pallas wrote a non-zero angle to an invalid slot")
+        argv6.append(a6)
+    print(f"describe_pallas {n6} valid slots in 4 frames: angle max |err| {err6:.3e} rad "
+          f"(tol 1e-5), descriptors bit-equal", flush=True)
+    if not err6 <= 1e-5:
+        fail("describe_pallas angles disagree with its plain twin")
+    tm6 = times(lambda: describe_pallas(*argv6[0]))
+    plain6 = timed(torch, lambda: describe_pallas_plain(*argv6[0]), reps=1)
+    nv6 = int(argv6[0][0].valid.sum())
+    # As kernel 3: valid slots read their samples, every slot its geometry
+    # (7 words) and its 17 output words.
+    record("describe_pallas", source="akaze_tpu_torch/csrc/describe.cu",
+           replaces="akaze_tpu/kernels/describe_pallas.py:350", max_abs_err=err6, **tm6, plain_ms=plain6,
+           bound=bound_ms(4 * (nv6 * n_samples + config.max_keypoints * (7 + 17)), 31_000 * nv6))
+    del frames5, seed5, modg5, argv5, one5, st6, kps6, argv6, got, ref
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ phase 3
-    print(f"\n== main path: extract_batch + consecutive match, batch {B} x {W}x{H}", flush=True)
     frame_sets = [torch.from_numpy(video_sequence(B, H, W, seed=s)).to(dev)
                   for s in range(args.reps + 1)]
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    pass_ms, kp_counts, match_counts = [], [], []
-    for i, frames in enumerate(frame_sets):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        feats = extract_batch(frames, config)
-        kp = feats.keypoints
-        m = match(*_pairs(feats), mcfg)
-        b.record()
+
+    def run_batches(cfg, title):
+        """1 warm-up + reps timed passes of extract_batch + match on distinct
+        batches, launch counts zeroed just before and read just after."""
+        print(f"\n== {title}: extract_batch + consecutive match, batch {B} x {W}x{H}", flush=True)
         torch.cuda.synchronize()
-        if i > 0:
-            pass_ms.append(a.elapsed_time(b))
-        kp_counts.append(kp.count().cpu())
-        match_counts.append(m.count().cpu())
-        if not (torch.isfinite(kp.x[kp.valid]).all() and torch.isfinite(kp.angle).all()):
-            fail("non-finite keypoint output")
-        if feats.descriptors.shape != (B, config.max_keypoints, 16) or kp.x.shape != (B, config.max_keypoints):
-            fail(f"unexpected output shapes {tuple(feats.descriptors.shape)}")
-    launches = dict(_build.launches)
+        _build.reset_launches()
+        pass_ms, kp_counts, match_counts = [], [], []
+        for i, frames in enumerate(frame_sets):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            feats = extract_batch(frames, cfg)
+            kp = feats.keypoints
+            m = match(*_pairs(feats), mcfg)
+            b.record()
+            torch.cuda.synchronize()
+            if i > 0:
+                pass_ms.append(a.elapsed_time(b))
+            kp_counts.append(kp.count().cpu())
+            match_counts.append(m.count().cpu())
+            if not (torch.isfinite(kp.x[kp.valid]).all() and torch.isfinite(kp.angle).all()):
+                fail("non-finite keypoint output")
+            if feats.descriptors.shape != (B, cfg.max_keypoints, 16) or kp.x.shape != (B, cfg.max_keypoints):
+                fail(f"unexpected output shapes {tuple(feats.descriptors.shape)}")
+        counts = dict(_build.launches)
+        fps = [B / (t / 1e3) for t in pass_ms]
+        print(f"passes (ms): {[round(t, 3) for t in pass_ms]}  frames/s: {[round(f, 1) for f in fps]}",
+              flush=True)
+        print(f"frames/s mean {sum(fps) / len(fps):.1f}, best {max(fps):.1f}", flush=True)
+        kc = torch.stack(kp_counts).double()
+        mc = torch.stack(match_counts).double()
+        print(f"keypoints/frame mean {kc.mean().item():.1f}, accepted matches/pair mean "
+              f"{mc.mean().item():.1f}", flush=True)
+        print(f"kernels launched over {len(frame_sets)} batches: {counts}", flush=True)
+        if len({int(c.sum()) for c in kp_counts}) < 2:
+            fail("distinct inputs gave identical keypoint counts")
+        if kc.min() <= 0:
+            fail("a frame produced no keypoints")
+        return counts
+
     n_batches = len(frame_sets)
-    fps = [B / (t / 1e3) for t in pass_ms]
-    print(f"passes (ms): {[round(t, 3) for t in pass_ms]}  frames/s: {[round(f, 1) for f in fps]}",
-          flush=True)
-    print(f"frames/s mean {sum(fps) / len(fps):.1f}, best {max(fps):.1f}", flush=True)
-    kc = torch.stack(kp_counts).double()
-    mc = torch.stack(match_counts).double()
-    print(f"keypoints/frame mean {kc.mean().item():.1f}, accepted matches/pair mean "
-          f"{mc.mean().item():.1f}", flush=True)
-    print(f"kernels launched over {n_batches} batches: {launches}", flush=True)
-    if len({int(c.sum()) for c in kp_counts}) < 2:
-        fail("distinct inputs gave identical keypoint counts")
-    if kc.min() <= 0:
-        fail("a frame produced no keypoints")
-    for name in ("base_stage", "fused_octave", "describe", "match"):
-        if launches[name] <= 0:
-            fail(f"kernel {name} was not launched by the main path")
+    launches = run_batches(config, "main path")
     expect = {"base_stage": 1, "fused_octave": len(groups), "describe": 1, "match": 1}
     for name, per in expect.items():
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the main path")
         if launches[name] != per * n_batches:
             fail(f"{name}: {launches[name]} launches, expected {per} per batch")
 
@@ -379,8 +554,81 @@ def main() -> int:
              "describe (kernel 3)", "match (kernel 4 + filters)")
     for i, name in enumerate(names):
         print(f"  stage {name}: {ev[i].elapsed_time(ev[i + 1]):.3f} ms", flush=True)
-    profile_batch(torch, root, lambda: match(*_pairs(extract_batch(frame_sets[1], config)), mcfg))
-    del frame_sets, st, cand, kps, descs, feats
+    profile_step(torch, ours, "batch", lambda: match(*_pairs(extract_batch(frame_sets[1], config)), mcfg))
+
+    # Path A: the same batches through the chunked describe (kernel 7).
+    launches_a = run_batches(cfg_a, "path A, describe_backend='xla'")
+    for name in ("base_stage", "fused_octave", "gather_patches", "match"):
+        if launches_a[name] <= 0:
+            fail(f"kernel {name} was not launched by path A")
+    if launches_a["describe"] != 0:
+        fail("path A launched the fused describe kernel")
+    _, ds_a = _statics(W, H, cfg_a)
+    ev[0].record()
+    fdescribe.describe_batched(kps, st["lvl_oct"], ss, ds_a)
+    ev[1].record()
+    torch.cuda.synchronize()
+    print(f"  stage describe (restack + kernel 7 + chunked describe): {ev[0].elapsed_time(ev[1]):.3f} ms "
+          f"(the fused describe of the same keypoints: {ev[3].elapsed_time(ev[4]):.3f} ms above)", flush=True)
+    del frame_sets, st, cand, kps, descs
+    torch.cuda.empty_cache()
+
+    # Path B: extract_fn on single VGA frames (kernels 1, 5 and 7), 1
+    # warm-up and 8 timed frames, all distinct.
+    print(f"\n== path B: extract_fn on single {W}x{H} frames", flush=True)
+    frames_b = torch.from_numpy(video_sequence(9, H, W, seed=1)).to(dev)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    ms_b, n_b = [], []
+    for i in range(len(frames_b)):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fb = extract_fn(frames_b[i], config)
+        b.record()
+        torch.cuda.synchronize()
+        if i > 0:
+            ms_b.append(a.elapsed_time(b))
+        n_b.append(int(fb.keypoints.count()))
+        if not (torch.isfinite(fb.keypoints.x[fb.keypoints.valid]).all() and n_b[-1] > 0):
+            fail("path B: no or non-finite keypoints")
+        if fb.descriptors.shape != (config.max_keypoints, 16):
+            fail(f"path B: unexpected descriptor shape {tuple(fb.descriptors.shape)}")
+    launches_b = dict(_build.launches)
+    print(f"ms per frame: {[round(t, 3) for t in ms_b]}  mean {sum(ms_b) / len(ms_b):.3f} "
+          f"({1e3 * len(ms_b) / sum(ms_b):.1f} frames/s), keypoints/frame {n_b}", flush=True)
+    print(f"kernels launched over {len(frames_b)} frames: {launches_b}", flush=True)
+    for name, per in (("base_stage", 1), ("fused_level", ss.num_levels), ("gather_patches", 1)):
+        if launches_b[name] < per * len(frames_b):
+            fail(f"path B: {name} launched {launches_b[name]} times, expected {per} per frame")
+    profile_step(torch, ours, "path-B frame", lambda: extract_fn(frames_b[1], config))
+
+    # describe(backend="pallas") (kernel 6) on the same frames.
+    inputs_b = []
+    for i in range(len(frames_b)):
+        st_b = build_scale_space_levels(frames_b[i : i + 1], ss)
+        inputs_b.append((detect_dense(st_b["Ldet"], ss).index(0),
+                         {key: st_b[key][0] for key in ("Lt", "Lx", "Ly")}))
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    ms_6 = []
+    for i, (kp, stacks) in enumerate(inputs_b):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fd = fdescribe.describe(kp, stacks, ss, ds, backend="pallas")
+        b.record()
+        torch.cuda.synchronize()
+        if i > 0:
+            ms_6.append(a.elapsed_time(b))
+        if (fd.descriptors[~kp.valid] != 0).any() or not (fd.descriptors[kp.valid] != 0).any(dim=-1).all():
+            fail("describe(backend='pallas'): zero descriptor at a valid slot or non-zero at an invalid one")
+    launches_6 = dict(_build.launches)
+    print(f"describe(backend='pallas') ms per frame: {[round(t, 3) for t in ms_6]}  mean "
+          f"{sum(ms_6) / len(ms_6):.3f}; launches {launches_6['describe_pallas']}", flush=True)
+    if launches_6["describe_pallas"] != len(inputs_b):
+        fail("describe(backend='pallas') did not launch kernel 6 once per frame")
+    launches.update(gather_patches=launches_a["gather_patches"], fused_level=launches_b["fused_level"],
+                    describe_pallas=launches_6["describe_pallas"])
+    del frames_b, inputs_b, fb, fd
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ phase 4
@@ -420,13 +668,26 @@ def main() -> int:
     if abs(ak - ap) > 0.05 * max(ap, 1):
         fail("accepted matches differ by more than 5 %")
 
+    # Paths A and B through the kernels equal the paths through the twins.
+    print("\n== paths A (batch 2) and B (one frame): kernels against the plain twins, on the card", flush=True)
+    pairs = (("path A", extract_batch_fn(small, cfg_a), extract_batch_fn(small, cfg_a, plain=True)),
+             ("path B", extract_fn(small[0], config), extract_fn(small[0], config, plain=True)))
+    for name, fk, fp in pairs:
+        same = (torch.equal(fk.keypoints.valid, fp.keypoints.valid) and torch.equal(fk.keypoints.x, fp.keypoints.x)
+                and torch.equal(fk.keypoints.y, fp.keypoints.y) and torch.equal(fk.descriptors, fp.descriptors))
+        print(f"{name}: {fk.keypoints.count().tolist()} / {fp.keypoints.count().tolist()} keypoints, "
+              f"keypoints and descriptors {'equal' if same else 'DIFFERENT'}", flush=True)
+        if not same:
+            fail(f"{name} through the kernels differs from the plain twins")
+
     kernels = []
     for name, r in results.items():
         t, by = r["bound"]
         kernels.append({
             "name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": t, "bound_by": by, "library_ms": None,
+            "plain_ms": r["plain_ms"], "bound_ms": t, "bound_by": by, "library_ms": r.get("library_ms"),
+            "wrapper_ms": r["wrapper_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)  # nvidia-smi's name and power limit, as it prints them

@@ -1,6 +1,7 @@
-"""The port's four CUDA kernels against their plain PyTorch twins on the
-card, and the whole path through the kernels against the path through the
-twins.  Every test needs an NVIDIA GPU and skips without one; the file
+"""The port's seven CUDA kernels against their plain PyTorch twins on the
+card, and the three paths (batched extract + match, the same with the
+chunked describe, the per-level extract_fn) through the kernels against the
+paths through the twins.  Every test needs an NVIDIA GPU and skips without one; the file
 imports no JAX, so it runs on a GPU machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -12,15 +13,18 @@ import numpy as np
 import pytest
 import torch
 
-from akaze_tpu_torch.core.config import AkazeConfig, MatchConfig
-from akaze_tpu_torch.frontend.detect import detect, find_candidates_oct
-from akaze_tpu_torch.frontend.pipeline import _statics, extract_batch, extract_batch_fn
-from akaze_tpu_torch.frontend.scale_space import contrast_factor_from_modg
+from akaze_tpu_torch.core.config import AkazeConfig, Diffusivity, MatchConfig
+from akaze_tpu_torch.frontend.detect import detect, detect_dense, find_candidates_oct
+from akaze_tpu_torch.frontend.pipeline import _statics, extract_batch, extract_batch_fn, extract_fn
+from akaze_tpu_torch.frontend.scale_space import contrast_factor_from_modg, half_size
 from akaze_tpu_torch.kernels import _build
 from akaze_tpu_torch.kernels.describe import describe, describe_plain
+from akaze_tpu_torch.kernels.describe_single import describe_pallas, describe_pallas_plain
 from akaze_tpu_torch.kernels.fed import (
-    base_stage, base_stage_plain, fused_octave, fused_octave_plain, octave_groups, unpack_sub,
+    base_stage, base_stage_plain, build_scale_space_levels, fused_level_batched,
+    fused_level_batched_plain, fused_octave, fused_octave_plain, octave_groups, unpack_sub,
 )
+from akaze_tpu_torch.kernels.patch import gather_patches, gather_patches_plain
 from akaze_tpu_torch.kernels.match import match_reduce, match_reduce_plain
 from akaze_tpu_torch.matching.hamming import match_fn
 from akaze_tpu_torch.utils.synthetic import video_sequence
@@ -150,3 +154,101 @@ def test_flat_frames_through_the_kernels(cuda):
     m = match_fn(feats.descriptors[:1], feats.keypoints.valid[:1], feats.descriptors[1:],
                  feats.keypoints.valid[1:], MatchConfig())
     assert not m.accepted.any() and (m.distance == 1 << 30).all() and (m.idx_b == 0).all()
+
+
+@pytest.mark.parametrize("diff", list(Diffusivity))
+@pytest.mark.parametrize("size", SIZES)
+def test_fused_level_kernel(cuda, size, diff):
+    """Kernel 5 on every level of the per-level build, each fed the plain
+    chain's seed."""
+    cfg = AkazeConfig(diffusivity=diff)
+    ss, _ = _statics(size[1], size[0], cfg)
+    seed, modg = base_stage_plain(_frames(cuda, size=size), cfg.base_scale_offset)
+    k = contrast_factor_from_modg(modg, cfg)
+    n0 = _build.launches["fused_level"]
+    for i, spec in enumerate(ss.specs):
+        if i > 0 and spec.octave > ss.specs[i - 1].octave:
+            seed, k = half_size(seed).contiguous(), k * cfg.contrast_octave_decay
+        got = fused_level_batched(seed, k, spec, diff, i == 0)
+        ref = fused_level_batched_plain(seed, k, spec, diff, i == 0)
+        for g, r in zip(got, ref):
+            assert (g - r).abs().max().item() <= 2e-5
+        seed = ref[0]
+    assert _build.launches["fused_level"] == n0 + ss.num_levels
+
+
+# A lower detector threshold keeps a few dozen keypoints per frame at the
+# odd size too.
+LEVEL_CFG = AkazeConfig(detector_threshold=3e-4)
+
+
+def _level_scene(cuda, size, n=2, seed=5):
+    ss, ds = _statics(size[1], size[0], LEVEL_CFG)
+    st = build_scale_space_levels(_frames(cuda, n=n, seed=seed, size=size), ss, plain=True)
+    return ss, ds, st
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_describe_pallas_kernel(cuda, size):
+    ss, ds, st = _level_scene(cuda, size)
+    kps = detect_dense(st["Ldet"], ss)
+    for f in range(2):
+        kp = kps.index(f)
+        assert int(kp.valid.sum()) > 20
+        kp.valid[2:6] = False  # holes inside the valid prefix
+        stacks = {k: st[k][f].contiguous() for k in ("Lt", "Lx", "Ly")}
+        ang_k, desc_k = describe_pallas(kp, stacks, ss, ds)
+        ang_p, desc_p = describe_pallas_plain(kp, stacks, ss, ds)
+        v = kp.valid
+        d = (ang_k - ang_p).abs()[v]
+        assert torch.minimum(d, 2 * math.pi - d).max().item() <= 1e-5
+        assert torch.equal(desc_k, desc_p)
+        assert (desc_k[~v] == 0).all() and (ang_k[~v] == 0).all()
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_gather_patches_kernel(cuda, size):
+    """Kernel 7 on the three stack layouts, any slot count, bit for bit."""
+    ss, ds, st = _level_scene(cuda, size, n=3)
+    rng = np.random.default_rng(11)
+    N = 301
+    t = lambda a: torch.from_numpy(a).to(cuda)
+    frame, lvl = t(rng.integers(0, 3, N)), t(rng.integers(0, ss.num_levels, N))
+    y0 = t(rng.integers(-5, ss.h0, N))
+    x0 = t(rng.integers(-5, ss.w0, N))
+    valid = t(rng.random(N) < 0.8)
+    frame_major = {k: st[k] for k in ("Lt", "Lx", "Ly")}
+    level_major = {**{k: st[k].transpose(0, 1).contiguous() for k in ("Lt", "Lx", "Ly")}, "level_major": True}
+    single = {k: st[k][1].contiguous() for k in ("Lt", "Lx", "Ly")}
+    for stacks in (frame_major, level_major, single):
+        got = gather_patches(stacks, frame, lvl, y0, x0, valid, ds.ph, ds.pw)
+        assert torch.equal(got, gather_patches_plain(stacks, frame, lvl, y0, x0, valid, ds.ph, ds.pw))
+    assert (got[~valid] == 0).all()
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_chunked_describe_path_kernels_vs_plain(cuda, size):
+    frames = _frames(cuda, n=2, seed=7, size=size)
+    cfg = AkazeConfig(describe_backend="xla")
+    n0 = dict(_build.launches)
+    fk = extract_batch(frames, cfg, device=cuda)
+    assert _build.launches["gather_patches"] > n0["gather_patches"]
+    assert _build.launches["describe"] == n0["describe"]
+    fp = extract_batch_fn(frames, cfg, plain=True)
+    assert torch.equal(fk.keypoints.valid, fp.keypoints.valid)
+    assert torch.equal(fk.descriptors, fp.descriptors)
+    assert torch.equal(fk.keypoints.angle, fp.keypoints.angle)
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_per_level_path_kernels_vs_plain(cuda, size):
+    img = _frames(cuda, n=1, seed=8, size=size)[0]
+    n0 = dict(_build.launches)
+    fk = extract_fn(img, LEVEL_CFG)
+    for name in ("base_stage", "fused_level", "gather_patches"):
+        assert _build.launches[name] > n0[name], name
+    fp = extract_fn(img, LEVEL_CFG, plain=True)
+    assert int(fk.keypoints.count()) > 20
+    assert torch.equal(fk.keypoints.valid, fp.keypoints.valid)
+    assert torch.equal(fk.keypoints.x, fp.keypoints.x) and torch.equal(fk.keypoints.y, fp.keypoints.y)
+    assert torch.equal(fk.descriptors, fp.descriptors)

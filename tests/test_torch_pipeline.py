@@ -69,12 +69,12 @@ def test_slice_matches_jax(slice_outputs):
 
 def test_interop_round_trips(slice_outputs):
     _, ref, _, tf, _ = slice_outputs
-    back = interop.features_from_numpy(interop.features_to_numpy(tf))
+    back = interop.features_from_numpy(interop.features_to_numpy(tf), device="cpu")
     for f in dataclasses.fields(tf.keypoints):
         assert torch.equal(getattr(back.keypoints, f.name), getattr(tf.keypoints, f.name))
     assert torch.equal(back.descriptors, tf.descriptors)
     # JAX features cross as numpy: the uint32 words keep their bits.
-    again = interop.features_to_numpy(interop.features_from_numpy(ref))
+    again = interop.features_to_numpy(interop.features_from_numpy(ref, device="cpu"))
     for k, v in ref.items():
         np.testing.assert_array_equal(again[k], v, err_msg=k)
 
