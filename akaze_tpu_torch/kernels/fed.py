@@ -10,12 +10,15 @@ kernel (`csrc/fed.cu`) for CUDA tensors; there is no fallback between the
 two.  The builder's outputs keep the TPU layout: per octave, level-major
 (n, B, h, w) stacks `Lt/Lx/Ly` and detect fields `score` (f32) / `sub`
 (packed int32), and each octave hands the next its in-kernel half-size
-seed.
+seed.  Kernels 2 and 5 run the launches that `level_plan` gives each level
+(tiles, halos, whole planes, a fused detect cascade); the plan is pure
+Python and `tests/test_torch_fed_plan.py` replays it on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -40,6 +43,10 @@ SUB_SCALE = 16000.0
 NEG = -3.0e38  # candidate-score sentinel
 _DIFFUSIVITY_CODE = {Diffusivity.PM_G1: 0, Diffusivity.PM_G2: 1, Diffusivity.WEICKERT: 2}
 _MAXTAPS = 9
+#: __global__ launches made by the wrappers of kernels 2 and 5 (several per
+#: call; their C entry points report them).  `_build.launches` counts the
+#: wrapper calls.
+device_launches = {"fused_octave": 0, "fused_level": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -125,6 +132,140 @@ def base_stage(imgs: torch.Tensor, sigma0: float):
     return seed, modg
 
 
+# ------------------------------------------------------ the level-chain plan
+
+#: Shared memory one block may take on sm_90 (227 KB), and what a launch
+#: keeps there: three float32 planes of its loaded extent.
+SMEM_MAX = 232_448
+_SMEM_PER_PX = 12
+#: Output tile (rows, cols) of a tiled launch, and the smaller one taken
+#: when the batch gives too few blocks to fill the card (under two per SM).
+TILE = (64, 64)
+SMALL_TILE = (16, 32)
+#: Threads of a block.  Each walks runs of rows of one column and keeps the
+#: rows a stage reuses in registers, so fewer threads make longer runs; a
+#: block that holds a whole plane of 8192 pixels or more alone on its SM
+#: takes PLANE_THREADS.  The kernels are built for these two sizes only.
+THREADS = 256
+PLANE_THREADS = 1024
+#: Frames from which whole-plane blocks (one per frame) fill the card.
+_PLANE_BATCH = 64
+#: Sweeps one launch takes at most (the kernel's argument table).
+MAX_LAUNCH_SWEEPS = 256
+_STAGE_CODE = {"diffuse": 0, "detect": 1, "level": 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class Launch:
+    """One launch of a level chain.  stage "diffuse": G_1 blur,
+    conductivity and `sweeps` FED sweeps (halo >= sweeps + 3); "detect": the
+    derivative cascade and score (halo >= 2s + 1); "level": "diffuse" and
+    "detect" in one launch, Lsmooth kept in a fourth shared plane (halo >=
+    sweeps + 3 and >= 2s + 3).  Each block of `threads` owns one (rows,
+    cols) output `tile` and loads it with `halo` pixels around it, clipped
+    to the plane; `smem` is its shared memory in bytes."""
+
+    stage: str
+    tile: tuple
+    halo: int
+    sweeps: int
+    smem: int
+    threads: int
+
+
+@dataclasses.dataclass(frozen=True)
+class LevelPlan:
+    """schedule "tiled" (the level's sweeps in one launch over tiles) or
+    "plane" (one block per frame holds the whole plane); the first level of
+    the scale space is "tiled" with its detect launch alone."""
+
+    schedule: str
+    launches: tuple
+
+    @property
+    def sweeps(self) -> int:
+        return sum(l.sweeps for l in self.launches)
+
+
+def _launch(stage, h, w, tile, halo, sweeps=0, threads=THREADS) -> Launch:
+    per_px = _SMEM_PER_PX + (4 if stage == "level" else 0)
+    smem = per_px * min(h, tile[0] + 2 * halo) * min(w, tile[1] + 2 * halo)
+    return Launch(stage, tuple(tile), halo, sweeps, smem, threads)
+
+
+def level_plan(h: int, w: int, n_taus, sigma_sizes, first: bool, batch: int, sms: int) -> tuple:
+    """The launches of each level of one octave of `batch` (h, w) planes on
+    a card with `sms` multiprocessors: n_taus[i] FED sweeps and Scharr size
+    sigma_sizes[i] at level i (first: level 0 is the first level of the
+    scale space, which takes the seed as it is).
+
+    A level's diffusion (blur, conductivity and all its sweeps) is one
+    launch.  It runs on whole planes, one block per frame ("plane"), where
+    three planes of a frame fit in one block's shared memory and the batch
+    has 64 frames or more; else on tiles with a halo of 3 + its sweeps
+    ("tiled"): TILE, or SMALL_TILE where the batch gives fewer than two
+    blocks per SM, halved until the launch fits.  That launch also runs the
+    level's detect cascade ("level") where its four planes take at most a
+    third of the shared memory (three blocks per SM); else a detect launch
+    with halo 2s + 1 follows.  Blocks have THREADS threads (PLANE_THREADS
+    for large whole planes).  Raises ValueError where a launch cannot fit."""
+    big = batch * -(-h // TILE[0]) * -(-w // TILE[1])
+    tile = TILE if big >= 2 * sms else SMALL_TILE
+    whole = batch >= _PLANE_BATCH and _SMEM_PER_PX * h * w <= SMEM_MAX
+    plans = []
+    for i, (n, s) in enumerate(zip(n_taus, sigma_sizes)):
+        detect = _launch("detect", h, w, tile, 2 * int(s) + 1)
+        if first and i == 0:
+            plans.append(LevelPlan("tiled", (detect,)))
+            continue
+        if n > MAX_LAUNCH_SWEEPS:
+            raise ValueError(f"level_plan: {n} FED sweeps in a level, one launch takes {MAX_LAUNCH_SWEEPS}")
+        schedule, t = ("plane", (h, w)) if whole else ("tiled", tile)
+        nt = PLANE_THREADS if whole and h * w >= 8192 else THREADS
+        level = _launch("level", h, w, t, max(n + 3, 2 * int(s) + 3), n, nt)
+        if level.smem <= SMEM_MAX // 3:
+            plans.append(LevelPlan(schedule, (level,)))
+            continue
+        diffuse = _launch("diffuse", h, w, t, n + 3, n, nt)
+        while diffuse.smem > SMEM_MAX and diffuse.tile != (1, 1):
+            diffuse = _launch("diffuse", h, w, (max(1, t[0] // 2), max(1, t[1] // 2)), n + 3, n, nt)
+            t = diffuse.tile
+        if diffuse.smem > SMEM_MAX:
+            raise ValueError(f"level_plan: {n} sweeps on a {h}x{w} plane need a halo of {n + 3}, "
+                             f"which does not fit in {SMEM_MAX} bytes of shared memory")
+        plans.append(LevelPlan(schedule, (diffuse, detect)))
+    return tuple(plans)
+
+
+def plan_launches(plans, with_half: bool = False) -> int:
+    """The __global__ launches of one octave's (or one level's) plans."""
+    return sum(len(p.launches) for p in plans) + int(with_half)
+
+
+def _plan_table(plans):
+    """(launches per level, flat {stage, tile rows, tile cols, halo,
+    sweeps, threads} ints) as ctypes arrays."""
+    flat = [v for p in plans for l in p.launches
+            for v in (_STAGE_CODE[l.stage], l.tile[0], l.tile[1], l.halo, l.sweeps, l.threads)]
+    return (_I * len(plans))(*[len(p.launches) for p in plans]), (_I * len(flat))(*flat)
+
+
+def _lsmooth_scratch(plans, seed, first: bool):
+    """A plane for Lsmooth where a level past the first has a separate
+    detect launch, else None."""
+    later = plans[1:] if first else plans
+    return torch.empty_like(seed) if any(p.launches[0].stage == "diffuse" for p in later) else None
+
+
+def specs_plan(specs, h, w, first: bool, batch: int, sms: int) -> tuple:
+    """`level_plan` of the levels `specs` on `batch` (h, w) planes."""
+    return level_plan(h, w, [len(s.taus) for s in specs], [s.sigma_size for s in specs], first, batch, sms)
+
+
+def _sms(t: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
 # ------------------------------------------------------------------ kernel 2
 
 
@@ -181,9 +322,10 @@ def fused_octave_plain(seed, k, specs, diffusivity: Diffusivity, first: bool,
 
 
 def fused_octave(seed, k, specs, diffusivity: Diffusivity, first: bool,
-                 threshold: float, with_half: bool):
-    """Kernel 2 on CUDA tensors (one entry per octave, a fixed sequence of
-    launches per level), its plain twin on CPU tensors."""
+                 threshold: float, with_half: bool, plan=None):
+    """Kernel 2 on CUDA tensors (one entry per octave: per level the
+    launches of its `level_plan`, by default the one for these planes, then
+    the half-size launch), its plain twin on CPU tensors."""
     if seed.device.type == "cpu":
         return fused_octave_plain(seed, k, specs, diffusivity, first, threshold, with_half)
     _build.require_cuda(seed, "fused_octave")
@@ -193,10 +335,11 @@ def fused_octave(seed, k, specs, diffusivity: Diffusivity, first: bool,
     k = k.contiguous()
     B, h, w = seed.shape
     n = len(specs)
+    plan = specs_plan(specs, h, w, first, B, _sms(seed)) if plan is None else plan
     out = lambda dtype=torch.float32: torch.empty((n, B, h, w), dtype=dtype, device=seed.device)
     lt, lx, ly, score, sub = out(), out(), out(), out(), out(torch.int32)
     half = torch.empty((B, h // 2, w // 2), device=seed.device) if with_half else None
-    scratch = [torch.empty_like(seed) for _ in range(6)]  # lsmooth, g, tmp, lxr, lyr, ldet
+    lsmooth = _lsmooth_scratch(plan, seed, first)
 
     n_sweeps = [len(s.taus) for s in specs]
     half_taus = [float(np.float32(0.5 * t)) for s in specs for t in s.taus]
@@ -207,25 +350,29 @@ def fused_octave(seed, k, specs, diffusivity: Diffusivity, first: bool,
         swn.append(float(smooth[len(smooth) // 2]))
     g1 = gaussian_kernel(1.0)
     _, s1 = scharr_kernels(1)
+    counts, table = _plan_table(plan)
+    launched = _I(0)
     fn = _build.function("fed", "fused_octave", [
         _P, _P, _P, _P, _P, _P, _P, _P,  # seed, k, lt, lx, ly, score, sub, half
-        _P, _P, _P, _P, _P, _P,  # scratch
+        _P,  # scratch: lsmooth
         _I, _I, _I, _I, _I, _I,  # B, h, w, n, first, kind
         _IP, _FP, _IP, _FP, _FP, _IP, _F,  # per-level tables, threshold
-        _FP, _I, _F, _F, _P,  # G_1 taps, sigma-1 Scharr taps, stream
+        _FP, _I, _F, _F,  # G_1 taps, sigma-1 Scharr taps
+        _IP, _IP, _IP, _P,  # plan, launches made, stream
     ])
     with torch.cuda.device(seed.device):
         err = fn(seed.data_ptr(), k.data_ptr(), lt.data_ptr(), lx.data_ptr(), ly.data_ptr(),
                  score.data_ptr(), sub.data_ptr(), None if half is None else half.data_ptr(),
-                 *(t.data_ptr() for t in scratch),
+                 None if lsmooth is None else lsmooth.data_ptr(),
                  B, h, w, n, int(first), _DIFFUSIVITY_CODE[diffusivity],
                  (_I * n)(*n_sweeps), (_F * max(1, len(half_taus)))(*half_taus),
                  (_I * n)(*[s.sigma_size for s in specs]), (_F * n)(*sn), (_F * n)(*swn),
                  (_I * n)(*[s.border for s in specs]), float(threshold),
                  (_F * len(g1))(*g1), len(g1), float(s1[0]), float(s1[1]),
-                 _build.stream_of(seed))
+                 counts, table, ctypes.byref(launched), _build.stream_of(seed))
     _build.check("fed", err, "fused_octave")
     _build.launches["fused_octave"] += 1
+    device_launches["fused_octave"] += launched.value
     return lt, lx, ly, score, sub, half
 
 
@@ -245,9 +392,10 @@ def fused_level_batched_plain(seed, k, spec, diffusivity: Diffusivity, first_lev
     return (lt, *detector_response_level(lsmooth, spec.sigma_size))
 
 
-def fused_level_batched(seed, k, spec, diffusivity: Diffusivity, first_level: bool = False):
-    """Kernel 5 on CUDA tensors (the level chain of kernel 2 with Ldet
-    written out), its plain twin on CPU tensors."""
+def fused_level_batched(seed, k, spec, diffusivity: Diffusivity, first_level: bool = False, plan=None):
+    """Kernel 5 on CUDA tensors (kernel 2's level chain with Ldet written
+    out: the launches of the level's `level_plan`, by default the one for
+    this plane), its plain twin on CPU tensors."""
     if seed.device.type == "cpu":
         return fused_level_batched_plain(seed, k, spec, diffusivity, first_level)
     _build.require_cuda(seed, "fused_level")
@@ -256,26 +404,33 @@ def fused_level_batched(seed, k, spec, diffusivity: Diffusivity, first_level: bo
         raise ValueError("fused_level: k must be a float32 (B,) tensor on the seed's device")
     k = k.contiguous()
     B, h, w = seed.shape
+    plan = specs_plan((spec,), h, w, first_level, B, _sms(seed)) if plan is None else plan
     lt, lx, ly, ldet = (torch.empty_like(seed) for _ in range(4))
-    scratch = [torch.empty_like(seed) for _ in range(5)]  # lsmooth, g, tmp, lxr, lyr
+    lsmooth = _lsmooth_scratch(plan, seed, first_level)
     half_taus = [float(np.float32(0.5 * t)) for t in spec.taus]
     _, smooth = scharr_kernels(spec.sigma_size)
     g1 = gaussian_kernel(1.0)
     _, s1 = scharr_kernels(1)
+    counts, table = _plan_table(plan)
+    launched = _I(0)
     fn = _build.function("fed", "fused_level", [
         _P, _P, _P, _P, _P, _P,  # seed, k, lt, lx, ly, ldet
-        _P, _P, _P, _P, _P,  # scratch
+        _P,  # scratch: lsmooth
         _I, _I, _I, _I, _I, _I, _FP,  # B, h, w, first, kind, sweeps, half taus
-        _I, _F, _F, _FP, _I, _F, _F, _P,  # Scharr size and taps, G_1 taps, sigma-1 Scharr taps, stream
+        _I, _F, _F, _FP, _I, _F, _F,  # Scharr size and taps, G_1 taps, sigma-1 Scharr taps
+        _IP, _I, _IP, _P,  # plan, its launches, launches made, stream
     ])
     with torch.cuda.device(seed.device):
         err = fn(seed.data_ptr(), k.data_ptr(), lt.data_ptr(), lx.data_ptr(), ly.data_ptr(), ldet.data_ptr(),
-                 *(t.data_ptr() for t in scratch), B, h, w, int(first_level), _DIFFUSIVITY_CODE[diffusivity],
+                 None if lsmooth is None else lsmooth.data_ptr(),
+                 B, h, w, int(first_level), _DIFFUSIVITY_CODE[diffusivity],
                  len(half_taus), (_F * max(1, len(half_taus)))(*half_taus),
                  spec.sigma_size, float(smooth[0]), float(smooth[len(smooth) // 2]),
-                 (_F * len(g1))(*g1), len(g1), float(s1[0]), float(s1[1]), _build.stream_of(seed))
+                 (_F * len(g1))(*g1), len(g1), float(s1[0]), float(s1[1]),
+                 table, counts[0], ctypes.byref(launched), _build.stream_of(seed))
     _build.check("fed", err, "fused_level")
     _build.launches["fused_level"] += 1
+    device_launches["fused_level"] += launched.value
     return lt, lx, ly, ldet
 
 

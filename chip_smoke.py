@@ -13,7 +13,11 @@
    __global__ functions under torch.profiler (mean of 3 calls); the CUDA
    event time around its wrapper, host work included, is `wrapper_ms`
    (kernel 7 is also timed beside one advanced-indexing call that cuts the
-   same patches).
+   same patches).  Kernel 2 prints the launch plan of every level
+   (kernels/fed.py level_plan, which kernel 5 follows too) and the byte
+   floor of a level-at-a-time design; a line before the kernels line gives
+   the __global__ launches and device time of kernel 2 per batch and of
+   kernel 5 per VGA frame.
 3. Drives the main path through its public entry points at full width:
    extract_batch on batch x 640x480 frames with the default AkazeConfig,
    then consecutive-pair match with the default MatchConfig; 1 warm-up and
@@ -112,6 +116,12 @@ def csrc_kernels(root: Path) -> set:
     return ours
 
 
+def kernel_name(event_name: str) -> str:
+    """The function name of a profiler kernel row: "void f<256>(float
+    const*, ...)" and "f(float const*, ...)" both give "f"."""
+    return re.sub(r"^void\s+", "", event_name).split("(")[0].split("<")[0]
+
+
 def profiled(torch, step):
     """Run step() under torch.profiler: (wall ms, [(device ms, calls,
     kernel name)] largest first).  Device-side events only: the aten
@@ -137,16 +147,33 @@ def profiled(torch, step):
     return wall_ms, rows
 
 
-def kernel_device_ms(torch, ours: set, fn, reps: int = 3) -> float:
-    """Device time (ms) of the csrc __global__ functions that one fn()
-    launches: their sum under the profiler over reps calls (after one
+def kernel_device_ms(torch, ours: set, fn, reps: int = 3):
+    """Device time (ms) and __global__ launches of the csrc kernels that one
+    fn() runs: their sums under the profiler over reps calls (after one
     warm-up), divided by reps."""
     fn()
     _, rows = profiled(torch, lambda: [fn() for _ in range(reps)])
-    t = sum(ms for ms, _, name in rows if name.split("(")[0] in ours) / reps
+    mine = [(ms, n) for ms, n, name in rows if kernel_name(name) in ours]
+    t = sum(ms for ms, _ in mine) / reps
     if not t > 0:
         fail("the profiler saw no device time in the csrc kernels")
-    return t
+    return t, sum(n for _, n in mine) / reps
+
+
+def launch_times(torch, ours: set, fn) -> list:
+    """(kernel name, device us) of each csrc __global__ launch of one fn()
+    (after one warm-up), in launch order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA and kernel_name(e.name) in ours]
+    evs.sort(key=lambda e: e.time_range.start)
+    return [(kernel_name(e.name), e.time_range.elapsed_us()) for e in evs]
 
 
 def profile_step(torch, ours: set, what: str, step) -> None:
@@ -159,7 +186,7 @@ def profile_step(torch, ours: set, what: str, step) -> None:
         print(f"profiled {what}: wall {wall_ms:.3f} ms, device time not measured (the profiler saw none)",
               flush=True)
         return
-    mine = sum(t for t, _, name in rows if name.split("(")[0] in ours)
+    mine = sum(t for t, _, name in rows if kernel_name(name) in ours)
     print(f"profiled {what}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f} (under the profiler); {mine:.3f} ms in the "
           f"{len(ours)} kernels of akaze_tpu_torch/csrc, {busy_ms - mine:.3f} ms in PyTorch ops",
@@ -194,11 +221,13 @@ def main() -> int:
         )
         from akaze_tpu_torch.frontend.scale_space import contrast_factor_from_modg, half_size
         from akaze_tpu_torch.kernels import _build
+        from akaze_tpu_torch.kernels import fed as fed_kernels
         from akaze_tpu_torch.kernels.describe import describe, describe_plain
         from akaze_tpu_torch.kernels.describe_single import describe_pallas, describe_pallas_plain
         from akaze_tpu_torch.kernels.fed import (
             base_stage, base_stage_plain, build_scale_space_levels, fused_level_batched,
-            fused_level_batched_plain, fused_octave, fused_octave_plain, octave_groups, unpack_sub,
+            fused_level_batched_plain, fused_octave, fused_octave_plain, octave_groups, specs_plan,
+            unpack_sub,
         )
         from akaze_tpu_torch.kernels.match import match_reduce, match_reduce_plain
         from akaze_tpu_torch.kernels.patch import gather_patches, gather_patches_plain
@@ -208,6 +237,7 @@ def main() -> int:
         fail(f"the akaze_tpu_torch package is not next to this script ({e})")
 
     dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -227,10 +257,18 @@ def main() -> int:
 
     ours = csrc_kernels(root)
 
+    def reset_counts():
+        """Zero the wrappers' launch counts and kernels 2 and 5's
+        __global__ launch counts."""
+        _build.reset_launches()
+        for name in fed_kernels.device_launches:
+            fed_kernels.device_launches[name] = 0
+
     def times(fn):
         """The kernel's device time under the profiler and the event time
         around its wrapper."""
-        return {"ms": kernel_device_ms(torch, ours, fn), "wrapper_ms": timed(torch, fn)}
+        ms, n = kernel_device_ms(torch, ours, fn)
+        return {"ms": ms, "global_launches": n, "wrapper_ms": timed(torch, fn)}
 
     def record(name, **kw):
         t, by = kw["bound"]
@@ -264,9 +302,9 @@ def main() -> int:
     k = contrast_factor_from_modg(modg_p, config)
     seed = seed_p
     err2 = 0.0
-    tm2 = {"ms": 0.0, "wrapper_ms": 0.0}
+    tm2 = {"ms": 0.0, "global_launches": 0.0, "wrapper_ms": 0.0}
     plain2 = 0.0
-    nbytes2 = nops2 = 0.0
+    nbytes2 = nops2 = floor2 = 0.0
     oct_p = []
     for oi, (l0, n, h, w) in enumerate(groups):
         if oi > 0:
@@ -304,11 +342,21 @@ def main() -> int:
         print(f"fused_octave octave {oi} ({h}x{w}, {n} levels, "
               f"{sum(len(s.taus) for s in specs)} FED sweeps): Lt/Lx/Ly/score/half max |err| "
               f"{err2:.3e}, {int(cand.sum())} candidates, sub max |err| {esub:.2e}", flush=True)
-        for key, val in times(lambda: fused_octave(*argv)).items():
+        t2 = times(lambda: fused_octave(*argv))
+        for key, val in t2.items():
             tm2[key] += val
+        print(f"  octave {oi}: device {t2['ms']:.4f} ms, {t2['global_launches']:.0f} __global__ launches "
+              "(us: " + ", ".join(f"{name.replace('_kernel', '')} {us:.1f}"
+                                  for name, us in launch_times(torch, ours, lambda: fused_octave(*argv))) + ")",
+              flush=True)
         plain2 += timed(torch, lambda: fused_octave_plain(*argv), reps=1)
+        for li, p in enumerate(specs_plan(specs, h, w, oi == 0, B, sms)):
+            print(f"  plan level {l0 + li} ({h}x{w}, {len(specs[li].taus)} sweeps): {p.schedule}, "
+                  + "; ".join(f"{x.stage} tile {x.tile[0]}x{x.tile[1]} halo {x.halo} sweeps {x.sweeps} "
+                              f"smem {x.smem} B threads {x.threads}" for x in p.launches), flush=True)
         pl = B * h * w
         nbytes2 += 4 * pl * (1 + 5 * n) + (4 * pl // 4 if argv[-1] else 0)
+        floor2 += 24 * pl * n
         for li, s in enumerate(specs):
             per_px = 18 + 31 + 35  # first derivatives, second derivatives, score + fit
             if not (oi == 0 and li == 0):
@@ -319,6 +367,10 @@ def main() -> int:
     record("fused_octave", source="akaze_tpu_torch/csrc/fed.cu",
            replaces="akaze_tpu/kernels/fed_pallas.py:365", max_abs_err=err2, **tm2,
            plain_ms=plain2, bound=bound_ms(nbytes2, nops2))
+    # The least a design that runs one level at a time moves: per level the
+    # previous Lt read, Lt, Lx, Ly, score and sub written (24 B/px).
+    print(f"  fused_octave level-at-a-time floor: {floor2 / 1e9:.4f} GB, "
+          f"{bound_ms(floor2, 0)[0]:.4f} ms (24 B/px per level)", flush=True)
 
     # Kernel 3 on the plain twins' stacks and keypoints.
     lvl_oct = tuple({"Lt": o[0], "Lx": o[1], "Ly": o[2]} for o in oct_p)
@@ -436,6 +488,9 @@ def main() -> int:
           flush=True)
     one5 = [(a[0][:1].contiguous(), a[1][:1].contiguous(), *a[2:]) for a in argv5]
     tm5 = times(lambda: [fused_level_batched(*a) for a in one5])
+    print("  fused_level device us by level and launch: " + "; ".join(
+        " ".join(f"{us:.1f}" for _, us in launch_times(torch, ours, lambda a=a: fused_level_batched(*a)))
+        for a in one5), flush=True)
     plain5 = timed(torch, lambda: [fused_level_batched_plain(*a) for a in one5], reps=1)
     px5 = [sp.width * sp.height for sp in ss.specs]
     # Per level: seed read, 4 planes written; first derivatives 18 and
@@ -490,7 +545,7 @@ def main() -> int:
         batches, launch counts zeroed just before and read just after."""
         print(f"\n== {title}: extract_batch + consecutive match, batch {B} x {W}x{H}", flush=True)
         torch.cuda.synchronize()
-        _build.reset_launches()
+        reset_counts()
         pass_ms, kp_counts, match_counts = [], [], []
         for i, frames in enumerate(frame_sets):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -517,7 +572,8 @@ def main() -> int:
         mc = torch.stack(match_counts).double()
         print(f"keypoints/frame mean {kc.mean().item():.1f}, accepted matches/pair mean "
               f"{mc.mean().item():.1f}", flush=True)
-        print(f"kernels launched over {len(frame_sets)} batches: {counts}", flush=True)
+        print(f"kernels launched over {len(frame_sets)} batches: {counts}; __global__ launches of "
+              f"the level chain: {dict(fed_kernels.device_launches)}", flush=True)
         if len({int(c.sum()) for c in kp_counts}) < 2:
             fail("distinct inputs gave identical keypoint counts")
         if kc.min() <= 0:
@@ -578,7 +634,7 @@ def main() -> int:
     print(f"\n== path B: extract_fn on single {W}x{H} frames", flush=True)
     frames_b = torch.from_numpy(video_sequence(9, H, W, seed=1)).to(dev)
     torch.cuda.synchronize()
-    _build.reset_launches()
+    reset_counts()
     ms_b, n_b = [], []
     for i in range(len(frames_b)):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -596,7 +652,8 @@ def main() -> int:
     launches_b = dict(_build.launches)
     print(f"ms per frame: {[round(t, 3) for t in ms_b]}  mean {sum(ms_b) / len(ms_b):.3f} "
           f"({1e3 * len(ms_b) / sum(ms_b):.1f} frames/s), keypoints/frame {n_b}", flush=True)
-    print(f"kernels launched over {len(frames_b)} frames: {launches_b}", flush=True)
+    print(f"kernels launched over {len(frames_b)} frames: {launches_b}; __global__ launches of "
+          f"the level chain: {dict(fed_kernels.device_launches)}", flush=True)
     for name, per in (("base_stage", 1), ("fused_level", ss.num_levels), ("gather_patches", 1)):
         if launches_b[name] < per * len(frames_b):
             fail(f"path B: {name} launched {launches_b[name]} times, expected {per} per frame")
@@ -609,7 +666,7 @@ def main() -> int:
         inputs_b.append((detect_dense(st_b["Ldet"], ss).index(0),
                          {key: st_b[key][0] for key in ("Lt", "Lx", "Ly")}))
     torch.cuda.synchronize()
-    _build.reset_launches()
+    reset_counts()
     ms_6 = []
     for i, (kp, stacks) in enumerate(inputs_b):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -680,6 +737,13 @@ def main() -> int:
         if not same:
             fail(f"{name} through the kernels differs from the plain twins")
 
+    # The level chain's launch structure: __global__ launches and device
+    # time under the profiler (phase 2's rows).
+    print(f"level chain: fused_octave per batch-{B} VGA {results['fused_octave']['global_launches']:.0f} "
+          f"__global__ launches, {results['fused_octave']['ms']:.4f} ms device; fused_level per VGA frame "
+          f"{results['fused_level']['global_launches']:.0f} launches, {results['fused_level']['ms']:.4f} ms "
+          f"device ({results['fused_level']['wrapper_ms']:.4f} ms around its {ss.num_levels} wrapper calls)",
+          flush=True)
     kernels = []
     for name, r in results.items():
         t, by = r["bound"]

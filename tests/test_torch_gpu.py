@@ -17,18 +17,19 @@ from akaze_tpu_torch.core.config import AkazeConfig, Diffusivity, MatchConfig
 from akaze_tpu_torch.frontend.detect import detect, detect_dense, find_candidates_oct
 from akaze_tpu_torch.frontend.pipeline import _statics, extract_batch, extract_batch_fn, extract_fn
 from akaze_tpu_torch.frontend.scale_space import contrast_factor_from_modg, half_size
-from akaze_tpu_torch.kernels import _build
+from akaze_tpu_torch.kernels import _build, fed
 from akaze_tpu_torch.kernels.describe import describe, describe_plain
 from akaze_tpu_torch.kernels.describe_single import describe_pallas, describe_pallas_plain
 from akaze_tpu_torch.kernels.fed import (
     base_stage, base_stage_plain, build_scale_space_levels, fused_level_batched,
-    fused_level_batched_plain, fused_octave, fused_octave_plain, octave_groups, unpack_sub,
+    SMALL_TILE, fused_level_batched_plain, fused_octave, fused_octave_plain, level_plan,
+    octave_groups, plan_launches, unpack_sub,
 )
 from akaze_tpu_torch.kernels.patch import gather_patches, gather_patches_plain
 from akaze_tpu_torch.kernels.match import match_reduce, match_reduce_plain
 from akaze_tpu_torch.matching.hamming import match_fn
 from akaze_tpu_torch.utils.synthetic import video_sequence
-from torch_port_helpers import cuda, hamming, pair_keypoints  # noqa: F401 (fixture)
+from torch_port_helpers import cuda, custom_plan, hamming, pair_keypoints  # noqa: F401 (fixture)
 
 pytestmark = pytest.mark.gpu
 
@@ -71,25 +72,90 @@ def test_base_stage_kernel(cuda, size):
         assert (g - r).abs().max().item() <= 2e-5
 
 
+def _check_octave(got, ref):
+    """The scale-space gates for kernel 2 against its twin."""
+    for g, r in zip(got[:3], ref[:3]):
+        assert (g - r).abs().max().item() <= 2e-5
+    cand = ref[3] > -1e38
+    assert torch.equal(cand, got[3] > -1e38)
+    assert torch.allclose(got[3], ref[3], atol=2e-6, rtol=1e-6)
+    oxg, oyg, kg = unpack_sub(got[4])
+    oxr, oyr, kr = unpack_sub(ref[4])
+    assert torch.equal(kg[cand], kr[cand])
+    both = cand & kg
+    assert torch.allclose(oxg[both], oxr[both], atol=1e-4)
+    assert torch.allclose(oyg[both], oyr[both], atol=1e-4)
+    if ref[5] is not None:
+        assert (got[5] - ref[5]).abs().max().item() <= 2e-5
+
+
+def _octave_plan(a, batch=None):
+    """level_plan of kernel 2's arguments a, for their batch or another."""
+    seed, _, specs, _, first, _, _ = a
+    B, h, w = seed.shape
+    sms = torch.cuda.get_device_properties(seed.device).multi_processor_count
+    return level_plan(h, w, [len(s.taus) for s in specs], [s.sigma_size for s in specs], first,
+                      batch or B, sms)
+
+
+@pytest.mark.parametrize("diff", list(Diffusivity))
 @pytest.mark.parametrize("size", SIZES)
-def test_fused_octave_kernel(cuda, size):
-    ss, _ = _statics(size[1], size[0], AkazeConfig())
+def test_fused_octave_kernel(cuda, size, diff):
+    """Kernel 2 on every octave under its default plan; the wrapper reports
+    the plan's __global__ launches."""
+    ss, _ = _statics(size[1], size[0], AkazeConfig(diffusivity=diff))
     args, outs = _plain_octaves(_frames(cuda, size=size), ss)
     for a, ref in zip(args, outs):
+        plan, with_half = _octave_plan(a), a[-1]
+        n0 = fed.device_launches["fused_octave"]
         got = fused_octave(*a)
-        for g, r in zip(got[:3], ref[:3]):
-            assert (g - r).abs().max().item() <= 2e-5
-        cand = ref[3] > -1e38
-        assert torch.equal(cand, got[3] > -1e38)
-        assert torch.allclose(got[3], ref[3], atol=2e-6, rtol=1e-6)
-        oxg, oyg, kg = unpack_sub(got[4])
-        oxr, oyr, kr = unpack_sub(ref[4])
-        assert torch.equal(kg[cand], kr[cand])
-        both = cand & kg
-        assert torch.allclose(oxg[both], oxr[both], atol=1e-4)
-        assert torch.allclose(oyg[both], oyr[both], atol=1e-4)
-        if ref[5] is not None:
-            assert (got[5] - ref[5]).abs().max().item() <= 2e-5
+        assert fed.device_launches["fused_octave"] - n0 == plan_launches(plan, with_half) <= 10
+        _check_octave(got, ref)
+
+
+# Plans the default schedule does not take for three frames: fused level
+# launches on small ragged tiles, the plan of a batch of 128 (whole planes
+# wherever they fit; at 240x320 octave 0 runs tiled and octave 1 on whole
+# planes), and every level's detect cascade in a launch of its own.
+OTHER_PLANS = ("ragged tiles", "whole planes", "separate detect")
+
+
+def _other_plan(a, variant):
+    seed, _, specs, _, first, _, _ = a
+    h, w = seed.shape[-2:]
+    if variant == "whole planes":
+        return _octave_plan(a, batch=128)
+    ragged = variant == "ragged tiles"
+    return custom_plan(specs, h, w, first, (16, 24) if ragged else SMALL_TILE, ragged)
+
+
+@pytest.mark.parametrize("variant", OTHER_PLANS)
+@pytest.mark.parametrize("diff", list(Diffusivity))
+@pytest.mark.parametrize("size", SIZES)
+def test_level_chain_kernels_on_other_plans(cuda, size, diff, variant):
+    """Kernels 2 and 5 on plans other than their default."""
+    ss, _ = _statics(size[1], size[0], AkazeConfig(diffusivity=diff))
+    args, outs = _plain_octaves(_frames(cuda, size=size), ss)
+    schedules = []
+    for a, ref in zip(args[:2], outs[:2]):
+        seed, k, specs, _, first, _, with_half = a
+        plan = _other_plan(a, variant)
+        schedules.append({p.schedule for p in plan[1 if first else 0 :]})
+        n0 = fed.device_launches["fused_octave"]
+        _check_octave(fused_octave(*a, plan=plan), ref)
+        assert fed.device_launches["fused_octave"] - n0 == plan_launches(plan, with_half)
+        for li, spec in enumerate(specs):
+            src = seed if li == 0 else ref[0][li - 1]
+            got = fused_level_batched(src, k, spec, diff, first and li == 0, plan=plan[li : li + 1])
+            for g, r in zip(got, fused_level_batched_plain(src, k, spec, diff, first and li == 0)):
+                assert (g - r).abs().max().item() <= 2e-5
+    stages = {l.stage for a in args[:2] for p in _other_plan(a, variant) for l in p.launches}
+    if variant == "ragged tiles":
+        assert "level" in stages and "diffuse" not in stages
+    elif variant == "separate detect":
+        assert "level" not in stages
+    elif size == (240, 320):
+        assert schedules == [{"tiled"}, {"plane"}]
 
 
 def test_describe_kernel(cuda):
@@ -166,6 +232,8 @@ def test_fused_level_kernel(cuda, size, diff):
     seed, modg = base_stage_plain(_frames(cuda, size=size), cfg.base_scale_offset)
     k = contrast_factor_from_modg(modg, cfg)
     n0 = _build.launches["fused_level"]
+    d0 = fed.device_launches["fused_level"]
+    planned = 0
     for i, spec in enumerate(ss.specs):
         if i > 0 and spec.octave > ss.specs[i - 1].octave:
             seed, k = half_size(seed).contiguous(), k * cfg.contrast_octave_decay
@@ -173,8 +241,13 @@ def test_fused_level_kernel(cuda, size, diff):
         ref = fused_level_batched_plain(seed, k, spec, diff, i == 0)
         for g, r in zip(got, ref):
             assert (g - r).abs().max().item() <= 2e-5
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        planned += plan_launches(level_plan(*seed.shape[-2:], [len(spec.taus)], [spec.sigma_size], i == 0,
+                                            seed.shape[0], sms))
         seed = ref[0]
     assert _build.launches["fused_level"] == n0 + ss.num_levels
+    # At most two launches a level (one where the detect cascade is fused).
+    assert fed.device_launches["fused_level"] - d0 == planned <= 2 * ss.num_levels - 1
 
 
 # A lower detector threshold keeps a few dozen keypoints per frame at the

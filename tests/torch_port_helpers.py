@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from akaze_tpu_torch.kernels import fed
+
 
 def hamming(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """Per-row Hamming distance of (..., W) 32-bit descriptor words."""
@@ -46,3 +48,22 @@ def pair_keypoints(ref: dict, got: dict, tol: float = 0.01):
         if d.min() < tol:
             hams.append(int(hamming(ref["descriptors"][i], got["descriptors"][c[d.argmin()]])))
     return len(hams) / max(1, len(rv)), np.asarray(hams)
+
+
+def custom_plan(specs, h: int, w: int, first: bool, tile, fuse: bool) -> tuple:
+    """A level-chain plan that `fed.level_plan` does not choose: every level
+    of the octave `specs` on (h, w) planes run on `tile`, its detect cascade
+    in the level's one launch (fuse) or in a launch of its own, each halo as
+    small as its stages allow."""
+    plans = []
+    for i, spec in enumerate(specs):
+        n, reach = len(spec.taus), 2 * spec.sigma_size + 1
+        detect = fed._launch("detect", h, w, tile, reach)
+        if first and i == 0:
+            launches = (detect,)
+        elif fuse:
+            launches = (fed._launch("level", h, w, tile, max(n + 3, reach + 2), n),)
+        else:
+            launches = (fed._launch("diffuse", h, w, tile, n + 3, n), detect)
+        plans.append(fed.LevelPlan("tiled", launches))
+    return tuple(plans)
