@@ -1,14 +1,22 @@
-// Kernels 1 and 2 of the port: the nonlinear scale space on Hopper.
+// Kernels 1, 2 and 5 of the port: the nonlinear scale space on Hopper.
 //
 // Kernel 1, base_stage, replaces akaze_tpu/kernels/fed_pallas.py ::
 // base_stage_batched (_base_kernel).  For each frame it writes
 //   seed = G_sigma0 * img                 (9 taps at sigma0 = 1.6)
 //   modg = |Scharr grad (G_1 * img)|      (input of the contrast factor)
-// One launch covers the batch: one block per 32x16 output tile, the input
-// tile plus a 4-px halo in shared memory, each blur a separable pass there
-// (tile_blur, which kernel 2's G_1 blur shares).  It is bound by bytes (one plane
-// read, two written: 12 B/px against ~90 flops/px), so the design reads
-// the frame once and keeps every intermediate pass in shared memory.
+// One launch covers the batch on the level chain's machinery below: one
+// block of 256 threads per 64x64 output tile (kernels/fed.py BASE_TILE), the
+// tile and a 4-px halo clipped to the plane (1.27x the tile at VGA) copied
+// into shared memory with cp.async (every copy in flight before the first
+// wait), three barriers per tile; each thread walks a run of rows of one
+// column, so the vertical passes keep their rows in registers, and the taps
+// are written out (blur_v_run / blur_h_run, G_sigma0's tap count a template
+// argument).  Its byte floor is 12 B/px (one plane read, two written): 0.14
+// ms per batch-128 VGA, against ~0.39 ms measured on the H100 (PERF.md).  It
+// is not bound by bytes; by estimate it issues ~150 instructions per pixel,
+// ~80 of them flops, but three cuts to them each gained under 3 % while the
+// cp.async load gained 8 %, so latency holds it too (not measured: no
+// profiler of stalls runs there).  64x64 tiles beat 32x64, 32x128 and 64x128.
 //
 // Kernel 2, fused_octave, replaces fed_pallas.py :: fused_octave_batched
 // (_octave_kernel with with_detect=True, with_half=True).  The TPU kernel
@@ -48,120 +56,11 @@ struct Taps {
   int n;  // odd, <= MAXTAPS
 };
 
-// sum_t w[t] * x[t * stride] over the nonzero taps, left to right.
-__device__ __forceinline__ float tap_sum(const Taps& k, const float* x, int stride) {
-  float acc = 0.f;
-  bool first = true;
-#pragma unroll
-  for (int t = 0; t < MAXTAPS; ++t) {
-    if (t >= k.n) break;
-    const float w = k.w[t];
-    if (w == 0.f) continue;
-    const float term = w * x[t * stride];
-    acc = first ? term : acc + term;
-    first = false;
-  }
-  return acc;
-}
-
-// ------------------------------------------------- separable tile blur
-
-#define BT_W 32
-#define BT_H 16
-#define BR 4  // halo: up to 9 taps; the modg chain needs 2 + 1
-#define IW (BT_W + 2 * BR)
-#define IH (BT_H + 2 * BR)
-
-// s_in[i][j] = p[clamp(y0 - BR + i)][clamp(x0 - BR + j)]; ends with a barrier.
-__device__ void load_tile(const float* __restrict__ p, float (*s_in)[IW], int y0, int x0, int H,
-                          int W) {
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x, nt = blockDim.x * blockDim.y;
-  for (int i = tid; i < IH * IW; i += nt) {
-    const int r = i / IW, c = i % IW;
-    s_in[r][c] = p[(size_t)clampi(y0 - BR + r, 0, H - 1) * W + clampi(x0 - BR + c, 0, W - 1)];
-  }
-  __syncthreads();
-}
-
-// Edge-replicated separable blur of a loaded tile, vertical pass first (the
-// golden tap order).  out[a * ow + b] is the blur at the clamped position
-// (clamp(y0 + o + a), clamp(x0 + o + b)) for a < rows, b < ow, so a halo
-// entry past the border holds exactly the value the reference reads there.
-// vt holds rows x IW floats of the vertical pass.  Needs BR >= k.n / 2 - o
-// and ow + o + k.n / 2 <= BT_W + BR; ends with a barrier.
-__device__ void tile_blur(const Taps& k, const float (*s_in)[IW], int o, int rows, int ow,
-                          float* vt, float* out, int y0, int x0, int H, int W) {
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x, nt = blockDim.x * blockDim.y;
-  const int hk = k.n / 2;
-  for (int i = tid; i < rows * IW; i += nt) {
-    const int a = i / IW, c = i % IW;
-    const int ga = clampi(y0 + o + a, 0, H - 1);  // the clamped row this entry stands for
-    vt[i] = tap_sum(k, &s_in[ga - hk - y0 + BR][c], IW);
-  }
-  __syncthreads();
-  for (int i = tid; i < rows * ow; i += nt) {
-    const int a = i / ow, b = i % ow;
-    const int gb = clampi(x0 + o + b, 0, W - 1);
-    out[i] = tap_sum(k, &vt[a * IW + gb - hk - x0 + BR], 1);
-  }
-  __syncthreads();
-}
-
-// ---------------------------------------------------------------- kernel 1
-
-__global__ void base_stage_kernel(const float* __restrict__ img, float* __restrict__ seed,
-                                  float* __restrict__ modg, int H, int W, Taps g0, Taps g1,
-                                  float sn, float swn) {
-  __shared__ float s_in[IH][IW];
-  __shared__ float s_v0[BT_H * IW];
-  __shared__ float s_seed[BT_H][BT_W];
-  __shared__ float s_v1[(BT_H + 2) * IW];
-  __shared__ float s_sm[BT_H + 2][BT_W + 2];  // G_1*img at (clamp(y0-1+a), clamp(x0-1+b))
-
-  const int x0 = blockIdx.x * BT_W, y0 = blockIdx.y * BT_H;
-  const size_t off = (size_t)blockIdx.z * H * W;
-  load_tile(img + off, s_in, y0, x0, H, W);
-  tile_blur(g0, s_in, 0, BT_H, BT_W, s_v0, &s_seed[0][0], y0, x0, H, W);
-  tile_blur(g1, s_in, -1, BT_H + 2, BT_W + 2, s_v1, &s_sm[0][0], y0, x0, H, W);
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x, nt = blockDim.x * blockDim.y;
-  for (int i = tid; i < BT_H * BT_W; i += nt) {
-    const int r = i / BT_W, c = i % BT_W;
-    const int y = y0 + r, x = x0 + c;
-    if (y >= H || x >= W) continue;
-    seed[off + (size_t)y * W + x] = s_seed[r][c];
-    // Scharr (sigma 1) of G_1*img: row r+t and column c+t of s_sm stand
-    // for the clamped positions y-1+t and x-1+t.
-    const float vl = ((sn * s_sm[r][c]) + (swn * s_sm[r + 1][c])) + (sn * s_sm[r + 2][c]);
-    const float vr =
-        ((sn * s_sm[r][c + 2]) + (swn * s_sm[r + 1][c + 2])) + (sn * s_sm[r + 2][c + 2]);
-    const float gx = (-vl) + vr;
-    const float d0 = (-s_sm[r][c]) + s_sm[r + 2][c];
-    const float d1 = (-s_sm[r][c + 1]) + s_sm[r + 2][c + 1];
-    const float d2 = (-s_sm[r][c + 2]) + s_sm[r + 2][c + 2];
-    const float gy = ((sn * d0) + (swn * d1)) + (sn * d2);
-    modg[off + (size_t)y * W + x] = sqrtf(gx * gx + gy * gy);
-  }
-}
-
-extern "C" int base_stage(const float* img, float* seed, float* modg, int B, int H, int W,
-                          const float* g0, int n0, const float* g1, int n1, float sn, float swn,
-                          void* stream) {
-  Taps t0{}, t1{};
-  for (int i = 0; i < n0; ++i) t0.w[i] = g0[i];
-  for (int i = 0; i < n1; ++i) t1.w[i] = g1[i];
-  t0.n = n0;
-  t1.n = n1;
-  dim3 blk(32, 8);
-  dim3 grd((W + BT_W - 1) / BT_W, (H + BT_H - 1) / BT_H, B);
-  base_stage_kernel<<<grd, blk, 0, (cudaStream_t)stream>>>(img, seed, modg, H, W, t0, t1, sn,
-                                                           swn);
-  return (int)cudaGetLastError();
-}
-
-// ------------------------------------------------------- kernels 2 and 5
+// ------------------------------------------- tiles with a halo (1, 2, 5)
 //
-// The level chain.  A block owns one output tile of one frame and loads its
-// input with a halo of R pixels, clipped to the plane: shared-memory row 0
+// The level chain of kernels 2 and 5, and kernel 1.  A block owns one
+// output tile of one frame and loads its input with a halo of R pixels,
+// clipped to the plane: shared-memory row 0
 // stands for plane row ty0 = max(0, oy0 - R), and the loaded extent ends at
 // the plane border or R past the tile.  Every stage then computes a region
 // one stage-radius smaller than the last (for_radius) and reads its
@@ -273,11 +172,18 @@ __device__ __forceinline__ void for_radius_runs(const Region& g, int r, F f) {
            max(0, g.ox0 - r - g.tx0), min(g.cols, g.ox1 + r - g.tx0), f);
 }
 
-// The extent of plane p at the block's frame into s (row stride g.cols).
+// The extent of plane p at the block's frame into s (row stride g.cols),
+// copied with cp.async: each thread has all its copies in flight before it
+// waits for any.  They are complete before the caller's barrier.
 __device__ __forceinline__ void load_extent(const float* __restrict__ p, float* s, const Region& g,
                                             int w) {
-  for_rect(0, g.rows, 0, g.cols,
-           [&](int y, int x) { s[y * g.cols + x] = p[(size_t)(g.ty0 + y) * w + g.tx0 + x]; });
+  for_rect(0, g.rows, 0, g.cols, [&](int y, int x) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(s + y * g.cols + x);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(p + (size_t)(g.ty0 + y) * w + g.tx0 + x)
+                 : "memory");
+  });
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // The scaled Scharr derivatives at half-width s, as the stages below write
@@ -298,41 +204,53 @@ __device__ __forceinline__ float conductivity(float gx, float gy, float k, int k
   return grad2 > 0.f ? 1.f - expf(-3.315f / safe) : 1.f;
 }
 
-// The G_1 blur of the level chain has 5 nonzero taps (the host checks), so
-// its two passes are written out: taps summed left to right, first term
-// not added to zero, as tap_sum does.  The vertical pass of rows [ya, yb)
-// of column x keeps the five rows it reads in registers.
-__device__ __forceinline__ void blur5_v_run(const float* __restrict__ a, float* __restrict__ v,
-                                            const Taps& t, int x, int ya, int yb, int rows,
-                                            int cols) {
-  float r0 = a[max(ya - 2, 0) * cols + x], r1 = a[max(ya - 1, 0) * cols + x];
-  float r2 = a[ya * cols + x], r3 = a[min(ya + 1, rows - 1) * cols + x];
+// The passes of an N-tap separable blur (N odd, no zero tap: the host
+// checks), written out: taps summed left to right, first term not added to
+// zero, as the reference's filter_1d.  The vertical pass of rows [ya, yb) of
+// column x of a (rows x cols, clamped at its border) into v keeps the N rows
+// it reads in registers.
+template <int N>
+__device__ __forceinline__ void blur_v_run(const float* __restrict__ a, float* __restrict__ v,
+                                           const Taps& t, int x, int ya, int yb, int rows, int cols) {
+  constexpr int R = N / 2;
+  float r[N];
+#pragma unroll
+  for (int k = 0; k < N - 1; ++k) r[k] = a[clampi(ya - R + k, 0, rows - 1) * cols + x];
   for (int y = ya; y < yb; ++y) {
-    const float r4 = a[min(y + 2, rows - 1) * cols + x];
-    v[y * cols + x] = (((t.w[0] * r0 + t.w[1] * r1) + t.w[2] * r2) + t.w[3] * r3) + t.w[4] * r4;
-    r0 = r1;
-    r1 = r2;
-    r2 = r3;
-    r3 = r4;
+    r[N - 1] = a[min(y + R, rows - 1) * cols + x];
+    float acc = t.w[0] * r[0];
+#pragma unroll
+    for (int k = 1; k < N; ++k) acc = acc + t.w[k] * r[k];
+    v[y * cols + x] = acc;
+#pragma unroll
+    for (int k = 0; k < N - 1; ++k) r[k] = r[k + 1];
   }
 }
 
-// The horizontal pass of rows [ya, yb) of column x.
-__device__ __forceinline__ void blur5_h_run(const float* __restrict__ v, float* __restrict__ c,
-                                            const Taps& t, int x, int ya, int yb, int cols) {
-  const int x0 = max(x - 2, 0), x1 = max(x - 1, 0), x3 = min(x + 1, cols - 1), x4 = min(x + 2, cols - 1);
+// The horizontal pass of rows [ya, yb) of column x of v (cols wide, clamped
+// at its border) into out, whose rows are `os` floats apart.
+template <int N>
+__device__ __forceinline__ void blur_h_run(const float* __restrict__ v, float* __restrict__ out, int os,
+                                           const Taps& t, int x, int ya, int yb, int cols) {
+  constexpr int R = N / 2;
+  int xs[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) xs[k] = clampi(x - R + k, 0, cols - 1);
   for (int y = ya; y < yb; ++y) {
     const float* r = v + y * cols;
-    c[y * cols + x] = (((t.w[0] * r[x0] + t.w[1] * r[x1]) + t.w[2] * r[x]) + t.w[3] * r[x3]) + t.w[4] * r[x4];
+    float acc = t.w[0] * r[xs[0]];
+#pragma unroll
+    for (int k = 1; k < N; ++k) acc = acc + t.w[k] * r[xs[k]];
+    out[y * os + x] = acc;
   }
 }
 
-// The conductivity g of rows [ya, ya + n) of column x from Lsmooth c, its
-// sigma-1 Scharr gradient read through a window of three rows kept in
-// registers.
-__device__ __forceinline__ void conductivity_run(const float* __restrict__ c, float* __restrict__ g,
-                                                 int x, int ya, int yb, int rows, int cols,
-                                                 float sn, float swn, float k, int kind) {
+// The sigma-1 Scharr gradient of rows [ya, yb) of column x of c (rows x
+// cols, clamped at its border), read through a window of three rows kept in
+// registers: f(y, gx, gy) for each row.
+template <class F>
+__device__ __forceinline__ void scharr1_run(const float* __restrict__ c, int x, int ya, int yb, int rows,
+                                            int cols, float sn, float swn, F f) {
   const int xl = max(x - 1, 0), xr = min(x + 1, cols - 1);
   const float* u = c + max(ya - 1, 0) * cols;
   const float* m = c + ya * cols;
@@ -346,11 +264,57 @@ __device__ __forceinline__ void conductivity_run(const float* __restrict__ c, fl
     const float gx = (-vl) + vr;
     const float el = (-ul) + dl, em = (-um) + dm, er = (-ur) + dr;
     const float gy = ((sn * el) + (swn * em)) + (sn * er);
-    g[y * cols + x] = conductivity(gx, gy, k, kind);
+    f(y, gx, gy);
     ul = ml; um = mm; ur = mr;
     ml = dl; mm = dm; mr = dr;
   }
 }
+
+// ---------------------------------------------------------------- kernel 1
+//
+// One block per output tile of one frame, loaded with a halo clipped to the
+// plane (block_region, as the level chain).  Each stage computes the region
+// the next one reads and clamps its neighbours to the extent: G_sigma0's
+// vertical pass on the tile's rows, G_1's on the tile grown by 1 row and 3
+// columns (the Scharr reads 1 around the tile, the horizontal G_1 pass 2
+// more), so a halo of max(N / 2, 3) is exact.  Shared memory: the extent of
+// the image (then G_1 * img), and the vertical passes of G_sigma0 and G_1.
+// The G_sigma0 tap count N is a template argument, dispatched on the host.
+template <int N>
+__global__ void __launch_bounds__(TILE_THREADS)
+    base_stage_kernel(const float* __restrict__ img, float* __restrict__ seed, float* __restrict__ modg,
+                      int H, int W, int th, int tw, int halo, Taps g0, Taps g1, float sn, float swn) {
+  extern __shared__ float sm[];
+  const Region g = block_region(H, W, th, tw, halo);
+  const int rows = g.rows, cols = g.cols, n = rows * cols;
+  float* a = sm;
+  float* v0 = sm + n;
+  float* v1 = sm + 2 * n;
+  const size_t plane = (size_t)blockIdx.z * H * W;
+  load_extent(img + plane, a, g, W);
+  __syncthreads();
+  constexpr int R = N / 2;
+  const int cy0 = g.oy0 - g.ty0, cy1 = g.oy1 - g.ty0, cx0 = g.ox0 - g.tx0, cx1 = g.ox1 - g.tx0;
+  for_runs(cy0, cy1, max(0, cx0 - R), min(cols, cx1 + R),
+           [&](int x, int ya, int yb) { blur_v_run<N>(a, v0, g0, x, ya, yb, rows, cols); });
+  for_runs(max(0, cy0 - 1), min(rows, cy1 + 1), max(0, cx0 - 3), min(cols, cx1 + 3),
+           [&](int x, int ya, int yb) { blur_v_run<5>(a, v1, g1, x, ya, yb, rows, cols); });
+  __syncthreads();
+  const size_t at = plane + (size_t)g.ty0 * W + g.tx0;  // the extent's origin in the batch
+  for_radius_runs(g, 0, [&](int x, int ya, int yb) { blur_h_run<N>(v0, seed + at, W, g0, x, ya, yb, cols); });
+  for_radius_runs(g, 1, [&](int x, int ya, int yb) { blur_h_run<5>(v1, a, cols, g1, x, ya, yb, cols); });
+  __syncthreads();
+  for_radius_runs(g, 0, [&](int x, int ya, int yb) {
+    scharr1_run(a, x, ya, yb, rows, cols, sn, swn, [&](int y, float gx, float gy) {
+      modg[at + (size_t)y * W + x] = sqrtf(gx * gx + gy * gy);
+    });
+  });
+}
+
+// base_stage_kernel for each tap count of G_sigma0, at index N / 2.
+static void (*const base_stage_kernels[])(const float*, float*, float*, int, int, int, int, int, Taps, Taps, float,
+                                          float) = {base_stage_kernel<1>, base_stage_kernel<3>, base_stage_kernel<5>,
+                                                    base_stage_kernel<7>, base_stage_kernel<9>};
 
 // One explicit FED sweep of rows [ya, yb) of column x:
 //   nxt = cur + ht * sum_n (g_c + g_n)(cur_n - cur_c)  over E, W, S, N,
@@ -555,13 +519,14 @@ __global__ void __launch_bounds__(NT)
   // G_1 blur, vertical pass first (the golden order).
   for_runs(max(0, g.oy0 - rb - g.ty0), min(rows, g.oy1 + rb - g.ty0),
            max(0, g.ox0 - rb - 2 - g.tx0), min(cols, g.ox1 + rb + 2 - g.tx0),
-           [&](int x, int ya, int yb) { blur5_v_run(a, gb, t1, x, ya, yb, rows, cols); });
+           [&](int x, int ya, int yb) { blur_v_run<5>(a, gb, t1, x, ya, yb, rows, cols); });
   __syncthreads();
-  for_radius_runs(g, rb, [&](int x, int ya, int yb) { blur5_h_run(gb, ls, t1, x, ya, yb, cols); });
+  for_radius_runs(g, rb, [&](int x, int ya, int yb) { blur_h_run<5>(gb, ls, cols, t1, x, ya, yb, cols); });
   __syncthreads();
   const float k = kf[blockIdx.z];
   for_radius_runs(g, ns, [&](int x, int ya, int yb) {
-    conductivity_run(ls, gb, x, ya, yb, rows, cols, s1n, s1wn, k, kind);
+    scharr1_run(ls, x, ya, yb, rows, cols, s1n, s1wn,
+                [&](int y, float gx, float gy) { gb[y * cols + x] = conductivity(gx, gy, k, kind); });
   });
   if (!fused) for_radius(g, 0, 0, [&](int y, int x) { ls_out[at(y, x)] = ls[y * cols + x]; });
   __syncthreads();
@@ -645,7 +610,7 @@ static bool plan_ok(const PlanLaunch* p, int nl, int h, int w, bool first, int n
   return true;
 }
 
-// Lets each level kernel take SMEM_MAX bytes of dynamic shared memory, once
+// Lets each tile kernel take SMEM_MAX bytes of dynamic shared memory, once
 // per device.
 static int set_smem_limits() {
   static bool done[64] = {};
@@ -656,6 +621,7 @@ static int set_smem_limits() {
     cudaFuncSetAttribute(level_diffuse_kernel<TILE_THREADS>, attr, SMEM_MAX);
     cudaFuncSetAttribute(level_diffuse_kernel<PLANE_THREADS>, attr, SMEM_MAX);
     cudaFuncSetAttribute(level_detect_kernel, attr, SMEM_MAX);
+    for (auto* kernel : base_stage_kernels) cudaFuncSetAttribute(kernel, attr, SMEM_MAX);
     AKAZE_RETURN_IF_ERROR();
     done[dev] = true;
   }
@@ -667,6 +633,19 @@ static dim3 plan_grid(const PlanLaunch& p, int B, int h, int w) {
 }
 
 static dim3 plan_block(const PlanLaunch& p) { return dim3(32, p.threads / 32); }
+
+static Taps make_taps(const float* taps, int n) {
+  Taps t{};
+  for (int i = 0; i < n; ++i) t.w[i] = taps[i];
+  t.n = n;
+  return t;
+}
+
+static bool taps_nonzero(const Taps& t) {
+  for (int i = 0; i < t.n; ++i)
+    if (t.w[i] == 0.f) return false;
+  return true;
+}
 
 // The chain of one level for the whole batch (kernels 2 and 5 share it),
 // following its plan: Lt from `src` (the first level: the seed itself, no
@@ -683,9 +662,7 @@ static int level_chain(const float* src, const float* k, float* lt, float* lx, f
   if (!plan_ok(p, nl, h, w, first, ns, s)) return (int)cudaErrorInvalidValue;
   const bool fused = p[0].stage == STAGE_LEVEL;
   if (!first && !fused && lsmooth == nullptr) return (int)cudaErrorInvalidValue;
-  if (t1.n != 5) return (int)cudaErrorInvalidValue;  // blur5_*_run
-  for (int i = 0; i < 5; ++i)
-    if (t1.w[i] == 0.f) return (int)cudaErrorInvalidValue;
+  if (t1.n != 5 || !taps_nonzero(t1)) return (int)cudaErrorInvalidValue;  // blur_*_run<5>
   const int rc = set_smem_limits();
   if (rc) return rc;
   const DetectArgs dt{first ? lt : nullptr, lx, ly, ldet, score, sub, s, border, sn, swn, thr};
@@ -712,11 +689,29 @@ static int level_chain(const float* src, const float* k, float* lt, float* lx, f
   return 0;
 }
 
-static Taps make_taps(const float* taps, int n) {
-  Taps t{};
-  for (int i = 0; i < n; ++i) t.w[i] = taps[i];
-  t.n = n;
-  return t;
+// ---------------------------------------------------------------- kernel 1
+
+// img (B, H, W) -> seed, modg (B, H, W).  g0[n0]: the G_sigma0 taps (odd n0
+// <= 9, none zero: the host drops zero end taps); g1[n1]: the G_1 taps (5);
+// sn, swn: the sigma-1 Scharr smoothing taps; (th, tw) the output tile and
+// halo >= max(n0 / 2, 3) its halo.
+extern "C" int base_stage(const float* img, float* seed, float* modg, int B, int H, int W,
+                          const float* g0, int n0, const float* g1, int n1, float sn, float swn,
+                          int th, int tw, int halo, void* stream) {
+  if (n0 < 1 || n0 > MAXTAPS || n0 % 2 == 0 || n1 != 5 || th < 1 || tw < 1 || halo < 3 ||
+      halo < n0 / 2)
+    return (int)cudaErrorInvalidValue;
+  const Taps t0 = make_taps(g0, n0), t1 = make_taps(g1, n1);
+  if (!taps_nonzero(t0) || !taps_nonzero(t1)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || H == 0 || W == 0) return 0;
+  const size_t smem = 3 * sizeof(float) * (size_t)imin(H, th + 2 * halo) * (size_t)imin(W, tw + 2 * halo);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const int rc = set_smem_limits();
+  if (rc) return rc;
+  const dim3 grd((W + tw - 1) / tw, (H + th - 1) / th, B), blk(32, TILE_THREADS / 32);
+  base_stage_kernels[n0 / 2]<<<grd, blk, smem, (cudaStream_t)stream>>>(img, seed, modg, H, W, th, tw, halo,
+                                                                       t0, t1, sn, swn);
+  return (int)cudaGetLastError();
 }
 
 // One octave for the whole batch.  Outputs are level-major (n, B, h, w);

@@ -8,7 +8,8 @@ carries a hash of the sources, so an edited source is rebuilt and never
 loaded stale.  `--use_fast_math` is not passed, so `expf`, `sinf`, `cosf`
 and division stay IEEE; `-fmad=false` keeps every `a * b + c` as two
 roundings, as the float32 reference (and the plain PyTorch twins) compute
-it.
+it.  `-Xptxas=-v` makes nvcc report each kernel's registers, spills and
+shared memory; `build` returns that report with each library it built.
 
 `launches` holds one plain integer per kernel wrapper: the wrapper adds
 one where it launches its kernel and nowhere else, so a run can show that
@@ -32,7 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "akaze_tpu_torch"
 SOURCES = ("fed", "describe", "match", "patch")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas=-v",
 )
 
 launches = {
@@ -67,11 +68,13 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(names=SOURCES) -> dict[str, Path]:
+def build(names=SOURCES) -> dict[str, tuple[Path, str]]:
     """Compile the named sources that are not built yet, all nvcc processes
-    started together; raises with nvcc's output if one fails."""
+    started together: {name: (library, nvcc's output, "" where it was built
+    already)}.  Raises with nvcc's output if one fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = {name: _target(name) for name in names}
+    logs = dict.fromkeys(names, "")
     procs = {}
     for name, target in out.items():
         if target.exists():
@@ -82,20 +85,22 @@ def build(names=SOURCES) -> dict[str, Path]:
     errors = []
     for name, (proc, tmp) in procs.items():
         log, _ = proc.communicate()
+        text = log.decode(errors="replace")
         if proc.returncode != 0:
-            errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log.decode(errors='replace')}")
+            errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{text}")
         else:
+            logs[name] = text
             os.replace(tmp, out[name])
     if errors:
         raise RuntimeError("\n".join(errors))
-    return out
+    return {name: (out[name], logs[name]) for name in names}
 
 
 def library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            path = build((name,))[name]
+            path, _ = build((name,))[name]
             lib = ctypes.CDLL(str(path))
             lib.akaze_strerror.restype = ctypes.c_char_p
             lib.akaze_strerror.argtypes = [ctypes.c_int]

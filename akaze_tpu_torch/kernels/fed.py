@@ -108,13 +108,30 @@ def _check_planes(t: torch.Tensor, what: str) -> None:
                          f"{t.dtype} {tuple(t.shape)}")
 
 
+#: Kernel 1's output tile (rows, cols) and halo: 9 taps of G_sigma0 read 4
+#: pixels around the tile, G_1's 5 taps then the Scharr 2 + 1.
+BASE_TILE = (64, 64)
+BASE_HALO = 4
+
+
+def _nonzero_taps(taps: np.ndarray, what: str) -> np.ndarray:
+    """The taps without the zero taps at both ends (a small sigma underflows
+    them); summing the rest left to right is the reference's sum, which
+    skips zero taps."""
+    nz = np.nonzero(taps)[0]
+    lead, trail = int(nz[0]), len(taps) - 1 - int(nz[-1])
+    if lead != trail or len(nz) != len(taps) - lead - trail:
+        raise ValueError(f"{what}: the kernel takes taps that are zero only at both ends alike")
+    return taps[lead : len(taps) - trail]
+
+
 def base_stage(imgs: torch.Tensor, sigma0: float):
     """Kernel 1 on CUDA tensors, its plain twin on CPU tensors."""
     if imgs.device.type == "cpu":
         return base_stage_plain(imgs, sigma0)
     _build.require_cuda(imgs, "base_stage")
     _check_planes(imgs, "base_stage")
-    g0 = gaussian_kernel(sigma0)
+    g0 = _nonzero_taps(gaussian_kernel(sigma0), "base_stage")
     g1 = gaussian_kernel(1.0)
     if len(g0) > _MAXTAPS:
         raise ValueError(f"base_stage: sigma0 = {sigma0} needs {len(g0)} taps, the kernel takes {_MAXTAPS}")
@@ -122,11 +139,12 @@ def base_stage(imgs: torch.Tensor, sigma0: float):
     B, H, W = imgs.shape
     seed = torch.empty_like(imgs)
     modg = torch.empty_like(imgs)
-    fn = _build.function("fed", "base_stage", [_P, _P, _P, _I, _I, _I, _FP, _I, _FP, _I, _F, _F, _P])
+    fn = _build.function("fed", "base_stage",
+                         [_P, _P, _P, _I, _I, _I, _FP, _I, _FP, _I, _F, _F, _I, _I, _I, _P])
     with torch.cuda.device(imgs.device):
         err = fn(imgs.data_ptr(), seed.data_ptr(), modg.data_ptr(), B, H, W,
                  (_F * len(g0))(*g0), len(g0), (_F * len(g1))(*g1), len(g1),
-                 float(s1[0]), float(s1[1]), _build.stream_of(imgs))
+                 float(s1[0]), float(s1[1]), *BASE_TILE, BASE_HALO, _build.stream_of(imgs))
     _build.check("fed", err, "base_stage")
     _build.launches["base_stage"] += 1
     return seed, modg

@@ -3,6 +3,12 @@ per-column minimum / argmin of the Hamming distances between descriptor
 sets, over a batch of pairs, with its plain PyTorch twin (counterpart of
 the JAX package's `akaze_tpu/kernels/match_pallas.py`).
 
+The CUDA kernel (`csrc/match.cu`) computes the distances on the tensor
+cores as |a| + |b| - 2 |a & b| over (ROW_TILE x COL_TILE) tiles, each
+block owning ROW_TILE rows of A and walking the column tiles of B in
+order, four warps of (WARP_ROWS x WARP_COLS) per tile;
+`tests/test_torch_match_tiles.py` replays that decomposition on the CPU.
+
 Descriptors are (P, K, 16) int32 bit patterns; validity masks are (P, K)
 bool.  Rows see only B-valid columns, columns only A-valid rows, and the
 lowest index wins every tie.  A row with no valid column gets best =
@@ -19,6 +25,9 @@ import torch
 from akaze_tpu_torch.kernels import _build
 
 BIG = 1 << 30
+#: The kernel's tiling (the #defines TR, TC and its warp tiles in csrc/match.cu).
+ROW_TILE, COL_TILE = 64, 128
+WARP_ROWS, WARP_COLS = 32, 64
 _POPCOUNT = torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.int32)
 
 
@@ -68,8 +77,10 @@ def _check(da, va, db, vb) -> None:
             raise ValueError("match_reduce: all tensors must be on one device")
     if da.shape[0] != db.shape[0]:
         raise ValueError("match_reduce: A and B hold different numbers of pairs")
-    if da.shape[1] > 65536:
-        raise ValueError("match_reduce: the kernel takes at most 65536 rows")
+    if da.shape[1] > 65536 or da.shape[0] > 65535:
+        raise ValueError("match_reduce: the kernel takes at most 65536 rows and 65535 pairs")
+    if da.data_ptr() % 16 or db.data_ptr() % 16:
+        raise ValueError("match_reduce: descriptors must start on a 16-byte boundary")
 
 
 def match_reduce(da, va, db, vb):

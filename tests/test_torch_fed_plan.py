@@ -1,5 +1,5 @@
-"""The launch plan of kernels 2 and 5 (`kernels/fed.level_plan`) and the
-tile semantics of their level chain, on the CPU.
+"""The launch plan of kernels 2 and 5 (`kernels/fed.level_plan`), the tile
+semantics of their level chain and of kernel 1, on the CPU.
 
 The CUDA kernels run each level as a few launches over output tiles, each
 block loading its input with a halo clipped to the plane and clamping every
@@ -9,19 +9,26 @@ extent alone (so they clamp at the extent's border) and keeps the tile.  It
 must give the plain chain (`fed_cycle`, `detector_response_level`,
 `score_fields_plain`) bit for bit, which holds only if every halo covers
 its launch's stages and the plane border is the only border that matters.
+Kernel 1 (`base_stage`) runs on the same tiles; `_replay_base_stage` cuts
+its tiles and halo the same way.
 """
 
+from types import SimpleNamespace
+
+
+import numpy as np
 import pytest
 import torch
 
 from akaze_tpu_torch.core.config import AkazeConfig, Diffusivity
+from akaze_tpu_torch.core.image import gaussian_kernel
 from akaze_tpu_torch.frontend.pipeline import _statics
 from akaze_tpu_torch.frontend.scale_space import (
     conductivity, detector_response_level, fed_cycle, gaussian_blur, half_size, scharr,
 )
 from akaze_tpu_torch.kernels import fed
 from akaze_tpu_torch.kernels.fed import (
-    NEG, SMEM_MAX, base_stage_plain, fused_level_batched, fused_level_batched_plain,
+    BASE_HALO, BASE_TILE, NEG, SMEM_MAX, base_stage_plain, fused_level_batched, fused_level_batched_plain,
     fused_octave, fused_octave_plain, level_plan, octave_groups, plan_launches, score_fields_plain,
 )
 from akaze_tpu_torch.utils.synthetic import video_sequence
@@ -122,6 +129,55 @@ def _per_tile(launch, h, w, fn):
         fn((slice(ty0, ty1), slice(tx0, tx1)),
            (slice(oy0 - ty0, oy1 - ty0), slice(ox0 - tx0, ox1 - tx0)),
            (slice(oy0, oy1), slice(ox0, ox1)))
+
+
+def _replay_base_stage(imgs, sigma0, tile, halo):
+    """Kernel 1 as its blocks run it: base_stage_plain on each tile's extent
+    alone (so every stage clamps at the extent's border), the tile kept."""
+    seed, modg = torch.empty_like(imgs), torch.empty_like(imgs)
+
+    def run(ext, ctr, dst):
+        s, m = base_stage_plain(imgs[(..., *ext)], sigma0)
+        seed[(..., *dst)] = s[(..., *ctr)]
+        modg[(..., *dst)] = m[(..., *ctr)]
+
+    _per_tile(SimpleNamespace(tile=tile, halo=halo), *imgs.shape[-2:], run)
+    return seed, modg
+
+
+@pytest.mark.parametrize("size", [(480, 640), (97, 131), (5, 7)])
+def test_base_stage_tiles_are_exact(size):
+    """Kernel 1's tiles and halo give base_stage_plain bit for bit on a VGA
+    frame, on ragged tiles and on a frame smaller than one tile; a halo one
+    pixel short does not (except where one tile holds the frame)."""
+    h, w = size
+    frames = video_sequence(2, max(h + 20, 120), max(w + 30, 160), seed=9)
+    imgs = torch.from_numpy(frames)[:, 20 : 20 + h, 30 : 30 + w].contiguous()
+    assert imgs.shape == (2, h, w)
+    # One thread: two calls of base_stage_plain on two VGA frames were seen to
+    # differ in modg (1.8e-5) on the rows where torch's CPU kernels split the
+    # work between threads, in two of many runs.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        want = base_stage_plain(imgs, 1.6)
+        got = _replay_base_stage(imgs, 1.6, BASE_TILE, BASE_HALO)
+        short = _replay_base_stage(imgs, 1.6, BASE_TILE, BASE_HALO - 1)
+    finally:
+        torch.set_num_threads(threads)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    whole = h <= BASE_TILE[0] and w <= BASE_TILE[1]
+    assert (torch.equal(short[0], want[0]) and torch.equal(short[1], want[1])) == whole
+
+
+def test_base_stage_taps_drop_zero_ends():
+    """Kernel 1 sums the nonzero taps of G_sigma0, as the reference skips
+    zero taps; a small sigma0 underflows the end taps to zero."""
+    taps = gaussian_kernel(1.6)
+    assert len(taps) == 9 and np.array_equal(fed._nonzero_taps(taps, "t"), taps)
+    assert fed._nonzero_taps(gaussian_kernel(0.05), "t").tolist() == [1.0]
+    with pytest.raises(ValueError, match="zero"):
+        fed._nonzero_taps(np.array([0, 1, 0, 1, 0], np.float32), "t")
 
 
 def _emulate_level(src, k, spec, plan, kind, first, threshold):

@@ -29,7 +29,9 @@ from akaze_tpu_torch.kernels.patch import gather_patches, gather_patches_plain
 from akaze_tpu_torch.kernels.match import match_reduce, match_reduce_plain
 from akaze_tpu_torch.matching.hamming import match_fn
 from akaze_tpu_torch.utils.synthetic import video_sequence
-from torch_port_helpers import cuda, custom_plan, hamming, pair_keypoints  # noqa: F401 (fixture)
+from torch_port_helpers import (  # noqa: F401 (cuda: a fixture)
+    MATCH_CASES, cuda, custom_plan, hamming, match_case, match_descriptors, pair_keypoints,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -62,14 +64,19 @@ def _plain_octaves(imgs, ss):
     return args, outs
 
 
-@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("size", [*SIZES, (480, 640), (5, 7)])
 def test_base_stage_kernel(cuda, size):
-    imgs = _frames(cuda, size=size)
-    n0 = _build.launches["base_stage"]
-    got = base_stage(imgs, 1.6)
-    assert _build.launches["base_stage"] == n0 + 1
-    for g, r in zip(got, base_stage_plain(imgs, 1.6)):
-        assert (g - r).abs().max().item() <= 2e-5
+    """Kernel 1 bit for bit: ragged tiles, a VGA frame and a frame smaller
+    than one tile (cut from a larger scene); sigma0 1.6 (9 taps) and 0.05
+    (one tap: the others underflow to zero)."""
+    h, w = size
+    imgs = _frames(cuda, size=(max(h, 120), max(w, 160)))[:, :h, :w].contiguous()
+    for sigma0 in (1.6, 0.05):
+        n0 = _build.launches["base_stage"]
+        got = base_stage(imgs, sigma0)
+        assert _build.launches["base_stage"] == n0 + 1
+        for g, r in zip(got, base_stage_plain(imgs, sigma0)):
+            assert torch.equal(g, r)
 
 
 def _check_octave(got, ref):
@@ -175,21 +182,36 @@ def test_describe_kernel(cuda):
     assert (desc_k[~v] == 0).all() and (ang_k[~v] == 0).all()
 
 
-def test_match_kernel(cuda):
-    rng = np.random.default_rng(3)
-    P, Ka, Kb = 3, 300, 260
-    a = rng.integers(-2**31, 2**31, size=(P, Ka, 16), dtype=np.int64).astype(np.int32)
-    b = rng.integers(-2**31, 2**31, size=(P, Kb, 16), dtype=np.int64).astype(np.int32)
-    b[:, :100] = a[:, :100]
-    a[:, 200:] = a[:, :100]  # duplicate rows: ties
-    va = rng.random((P, Ka)) > 0.1
-    vb = rng.random((P, Kb)) > 0.1
-    vb[2] = False  # a pair with no valid B
-    t = lambda x: torch.from_numpy(x).to(cuda)
-    got = match_reduce(t(a), t(va), t(b), t(vb))
-    ref = match_reduce_plain(t(a), t(va), t(b), t(vb))
-    for g, r in zip(got, ref):
-        assert torch.equal(g, r)
+def _match_inputs(cuda, case):
+    """(da, va, db, vb) on the card: one of MATCH_CASES as one pair, or
+    "main path": 127 consecutive pairs of 1,024 slots whose valid slots are
+    a prefix with holes (~210 per frame), near-duplicates between frames."""
+    if case != "main path":
+        a, va, b, vb = match_case(*case)
+        return tuple(torch.from_numpy(x.view(np.int32) if x.dtype == np.uint32 else x)[None].to(cuda)
+                     for x in (a, va, b, vb))
+    rng = np.random.default_rng(12)
+    d = match_descriptors(rng, 128 * 1024).reshape(128, 1024, 16)
+    flips = np.uint32(1) << rng.integers(0, 32, size=(127, 300, 16), dtype=np.uint32)
+    d[1:, :300] = d[:-1, :300] ^ (flips * (rng.random((127, 300, 16)) < 0.05))
+    d[:, 700:720] = d[:, :20]  # duplicate slots: ties
+    v = np.arange(1024)[None, :] < rng.integers(150, 280, size=(128, 1))
+    v[:, 4::9] = False
+    dt, vt = torch.from_numpy(d.view(np.int32)).to(cuda), torch.from_numpy(v).to(cuda)
+    return dt[:-1].contiguous(), vt[:-1].contiguous(), dt[1:].contiguous(), vt[1:].contiguous()
+
+
+@pytest.mark.parametrize("case", [*MATCH_CASES, "main path"])
+def test_match_kernel(cuda, case):
+    """Kernel 4 exactly equal to its twin on all five vectors: ragged tiles,
+    ties across every boundary of its decomposition, all-invalid sides, and
+    the main path's 127 pairs of 1,024 slots."""
+    da, va, db, vb = _match_inputs(cuda, case)
+    n0 = _build.launches["match"]
+    got = match_reduce(da, va, db, vb)
+    assert _build.launches["match"] == n0 + 1
+    for name, g, r in zip(("best", "second", "nn", "colmin", "colarg"), got, match_reduce_plain(da, va, db, vb)):
+        assert torch.equal(g, r), name
 
 
 @pytest.mark.parametrize("size", SIZES)

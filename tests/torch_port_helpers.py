@@ -67,3 +67,50 @@ def custom_plan(specs, h: int, w: int, first: bool, tile, fuse: bool) -> tuple:
             launches = (fed._launch("diffuse", h, w, tile, n + 3, n), detect)
         plans.append(fed.LevelPlan("tiled", launches))
     return tuple(plans)
+
+
+def match_descriptors(rng, n):
+    """n random (n, 16) uint32 descriptors."""
+    d = rng.integers(0, 2**32, size=(n, 16), dtype=np.uint32)
+    d[:, -1] &= (1 << 6) - 1  # 486 bits used, as AKAZE's descriptors
+    return d
+
+
+def match_case(ka, kb, mask):
+    """Random descriptors with exact matches, and duplicate rows and columns
+    placed across lanes, warp blocks and tiles, so that ties cross every
+    boundary of the decomposition."""
+    rng = np.random.default_rng(ka * 7 + kb)
+    a, b = match_descriptors(rng, ka), match_descriptors(rng, kb)
+    n = min(ka, kb) // 3
+    b[:n] = a[:n]
+    for src, dst in ((0, 2), (1, 9), (3, 64), (5, 67), (6, 130), (2, 200)):
+        if dst < kb:
+            b[dst] = b[src]
+        if dst < ka:
+            a[dst] = a[src]
+    if mask == "prefix_holes":  # as the main path: a valid prefix with holes
+        va, vb = np.arange(ka) < int(0.8 * ka) + 1, np.arange(kb) < int(0.7 * kb) + 1
+        va[3::11] = False
+        vb[5::7] = False
+    else:
+        va, vb = rng.random(ka) > 0.15, rng.random(kb) > 0.15
+        if mask == "invalid_a":
+            va[:] = False
+        elif mask == "invalid_b":
+            vb[:] = False
+    return a, va, b, vb
+
+
+#: (Ka, Kb, mask) of the match cases: Ka, Kb not multiples of 16, 8, 64 or
+#: 128 (1 included), Kb over one column tile, all-invalid A or B.
+MATCH_CASES = [
+    (1, 1, "random"),
+    (1, 300, "prefix_holes"),
+    (77, 1, "random"),
+    (130, 263, "prefix_holes"),
+    (200, 1100, "prefix_holes"),
+    (96, 520, "random"),
+    (130, 263, "invalid_a"),
+    (70, 140, "invalid_b"),
+]
