@@ -1,12 +1,16 @@
 """Kernel 3 (`describe`): orientation + M-LDB for every valid keypoint
 slot, with its plain PyTorch twin (counterpart of the JAX package's
-`akaze_tpu/kernels/describe_fused.py`).
+`akaze_tpu/kernels/describe_fused.py`), and the launcher that kernel 6
+(`kernels/describe_single.py`) shares: both run `describe_kernel` of
+`csrc/describe.cu`.
 
-Both versions share the per-keypoint geometry prep (`keypoint_geometry`):
-level coordinates xf = x / ratio, the level's sampling scale and clip
-bounds, and where its planes live (octave group, level within the octave,
-frame).  The TPU kernel's aligned DMA windows are not carried over: samples
-are read straight from the level planes.
+The twin (`describe_from_samples`) sums the orientation windows and the
+cell means in the kernel's order: each window over WIN_SPLIT sample ranges,
+each cell over parts of CELL_PART members, the partial sums then added in
+order.  The kernel computes each slot's level geometry itself from the raw
+keypoint fields and the per-level tables of `_level_args`, which the twin's
+`keypoint_geometry` also reads.  The TPU kernel's aligned DMA windows are
+not carried over: samples are read straight from the level planes.
 """
 
 from __future__ import annotations
@@ -27,10 +31,15 @@ from akaze_tpu_torch.kernels.fed import octave_groups
 if TYPE_CHECKING:  # frontend/describe.py imports this module
     from akaze_tpu_torch.frontend.describe import DescribeStatics
 
+#: csrc/describe.cu's decomposition: threads of a block (one slot at a
+#: time), sample ranges per orientation window, members per cell task.
+THREADS, WIN_SPLIT, CELL_PART = 128, 3, 25
+# Compile-time capacities of csrc/describe.cu.
+_MAXG, _MAXL, _MAX_ORI, _MAX_WIN, _MAX_SAMP, _MAX_CELLS, _MAX_TASKS, _MAX_TAB = (
+    8, 32, 128, 64, 448, 32, 128, 3072)
+
 TWO_PI = float(np.float32(2.0 * math.pi))
 _PI = float(np.float32(math.pi))
-# Compile-time capacities of csrc/describe.cu.
-_MAXG, _MAX_ORI, _MAX_WIN, _MAX_SAMP, _MAX_CELLS = 8, 128, 64, 448, 32
 
 
 def atan2_cephes(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -60,33 +69,41 @@ def mod_2pi(a: torch.Tensor) -> torch.Tensor:
     return torch.where(r < 0, r + TWO_PI, r)
 
 
+@functools.lru_cache(maxsize=16)
+def _level_args(ss: ScaleSpaceStatics, single: bool = False):
+    """Per-level tables of the kernel: (4, L) float32 ratio, sampling scale,
+    xmax = width - 1, ymax = height - 1, and (2, L) int32 octave group and
+    plane index in the group: the per-octave (n, B, h, w) stacks, or with
+    single=True one frame's padded (L, H0, W0) stacks (one group)."""
+    lv_f = np.stack([ss.ratios, per_level_scale(ss), ss.widths - 1, ss.heights - 1]).astype(np.float32)
+    lv_i = np.stack([np.zeros(ss.num_levels), np.arange(ss.num_levels)]).astype(np.int32)
+    if not single:
+        for g, (l0, n, _, _) in enumerate(octave_groups(ss)):
+            lv_i[0, l0 : l0 + n] = g
+            lv_i[1, l0 : l0 + n] = np.arange(n)
+    return lv_f, lv_i
+
+
+@functools.lru_cache(maxsize=16)
+def _level_tensors(ss: ScaleSpaceStatics, device: torch.device):
+    """`_level_args` of the per-octave stacks as (L, 4) float32 and (L, 2)
+    int64 tensors on `device`."""
+    lv_f, lv_i = _level_args(ss)
+    return (torch.as_tensor(lv_f.T.copy(), device=device),
+            torch.as_tensor(lv_i.T.astype(np.int64), device=device))
+
+
 def keypoint_geometry(kps: Keypoints, ss: ScaleSpaceStatics):
     """Flat per-keypoint prep: kpf (N, 5) f32 = (xf, yf, scale, xmax, ymax)
     and kpi (N, 4) i32 = (octave group, level in group, frame, valid)."""
     B, M = kps.x.shape
-    dev = kps.x.device
-    L = ss.num_levels
-    grp_of = np.zeros(L, np.int64)
-    l0_of = np.zeros(L, np.int64)
-    for g, (l0, n, _, _) in enumerate(octave_groups(ss)):
-        grp_of[l0 : l0 + n] = g
-        l0_of[l0 : l0 + n] = l0
+    lv_f, lv_i = _level_tensors(ss, kps.x.device)
     lvl = kps.class_id.reshape(-1).long()
-    table = lambda a, dtype: torch.as_tensor(a, device=dev).to(dtype)[lvl]
-    xf = kps.x.reshape(-1) / table(ss.ratios, torch.float32)
-    yf = kps.y.reshape(-1) / table(ss.ratios, torch.float32)
-    kpf = torch.stack([
-        xf, yf,
-        table(per_level_scale(ss), torch.float32),
-        table(ss.widths - 1, torch.float32),
-        table(ss.heights - 1, torch.float32),
-    ], dim=1)
-    frame = torch.arange(B, device=dev).repeat_interleave(M)
-    kpi = torch.stack([
-        table(grp_of, torch.int64), lvl - table(l0_of, torch.int64), frame,
-        kps.valid.reshape(-1).long(),
-    ], dim=1).to(torch.int32)
-    return kpf.contiguous(), kpi.contiguous()
+    f, i = lv_f[lvl], lv_i[lvl]
+    kpf = torch.stack([kps.x.reshape(-1) / f[:, 0], kps.y.reshape(-1) / f[:, 0], f[:, 1], f[:, 2], f[:, 3]], dim=1)
+    frame = torch.arange(B * M, device=kps.x.device) // M
+    kpi = torch.stack([i[:, 0], i[:, 1], frame, kps.valid.reshape(-1).long()], dim=1).to(torch.int32)
+    return kpf, kpi
 
 
 def _sample(planes, kpf, kpi, offx, offy):
@@ -123,13 +140,36 @@ def _cell_members(ds: DescribeStatics):
 
 def _cell_means_in_member_order(chans: torch.Tensor, idx, cw) -> torch.Tensor:
     """(3, N, S) samples -> (3, N, C) cell means as kernels 3 and 6 sum
-    them: per cell, acc = acc + sample * weight over its members in
-    increasing sample order, from 0."""
+    them: each cell's members (increasing sample order) cut into parts of
+    CELL_PART, each part summed acc = acc + sample * weight from 0, then the
+    part sums added in part order."""
     idx, cw = torch.as_tensor(idx, device=chans.device), torch.as_tensor(cw, device=chans.device)
-    acc = torch.zeros(chans.shape[:2] + (idx.shape[0],), dtype=chans.dtype, device=chans.device)
-    for j in range(idx.shape[1]):
-        acc = acc + chans[:, :, idx[:, j]] * cw
-    return acc
+    mean = None
+    for q0 in range(0, idx.shape[1], CELL_PART):
+        acc = torch.zeros(chans.shape[:2] + (idx.shape[0],), dtype=chans.dtype, device=chans.device)
+        for j in range(q0, min(idx.shape[1], q0 + CELL_PART)):
+            acc = acc + chans[:, :, idx[:, j]] * cw
+        mean = acc if mean is None else mean + acc
+    return mean
+
+
+def _window_sums(inside: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """(N, n_win) sums of the (N, S) sample values r over the (N, n_win, S)
+    window masks as kernels 3 and 6 take them: the samples cut into
+    WIN_SPLIT ranges of ceil(S / WIN_SPLIT), each range summed in sample
+    order from 0 (outside samples add 0), then the range sums added in
+    range order."""
+    S = r.shape[-1]
+    n = -(-S // WIN_SPLIT)
+    vals = torch.where(inside, r[:, None, :], torch.zeros((), dtype=r.dtype, device=r.device))
+    vals = torch.nn.functional.pad(vals, (0, WIN_SPLIT * n - S)).reshape(*vals.shape[:2], WIN_SPLIT, n)
+    acc = torch.zeros(vals.shape[:3], dtype=r.dtype, device=r.device)
+    for k in range(n):
+        acc = acc + vals[..., k]
+    out = acc[..., 0]
+    for j in range(1, WIN_SPLIT):
+        out = out + acc[..., j]
+    return out
 
 
 def describe_from_samples(sample, ds: DescribeStatics, dev: torch.device, xla: bool = False):
@@ -156,8 +196,11 @@ def describe_from_samples(sample, ds: DescribeStatics, dev: torch.device, xla: b
     wrap = torch.as_tensor(ds.win_wrap, device=dev)[:, None]
     inside = torch.where(wrap, (ang > lo) | (ang < hi - TWO_PI), (ang > lo) & (ang < hi))
     zero = torch.zeros((), device=dev)
-    sum_x = torch.where(inside, rx[:, None, :], zero).sum(-1)
-    sum_y = torch.where(inside, ry[:, None, :], zero).sum(-1)
+    if xla:
+        sum_x = torch.where(inside, rx[:, None, :], zero).sum(-1)
+        sum_y = torch.where(inside, ry[:, None, :], zero).sum(-1)
+    else:
+        sum_x, sum_y = _window_sums(inside, rx), _window_sums(inside, ry)
     norm = sum_x * sum_x + sum_y * sum_y
     best = torch.argmax(norm, dim=-1, keepdim=True)  # first max
     angle = mod_2pi(atan2(sum_y.gather(1, best)[:, 0], sum_x.gather(1, best)[:, 0]))
@@ -214,70 +257,127 @@ def describe_plain(kps: Keypoints, lvl_oct, ss: ScaleSpaceStatics, ds: DescribeS
 
 @functools.lru_cache(maxsize=8)
 def _host_tables(ds: DescribeStatics):
-    """Flat float and int tables of csrc/describe.cu (see its layout note)."""
-    cells, bit_a, bit_b = [], [], []
+    """The int32 table of csrc/describe.cu (floats by their bits; see its
+    layout note) and its sizes (n_ori, n_win, n_samp, n_cells, n_tasks,
+    n_bits, n_words, n_tab)."""
+    cells, bits = [], []
     n_cells = sum(g["mean_mat"].shape[1] for g in ds.grids)
     c0 = 0
     for grid, (idx, cw) in zip(ds.grids, _cell_members(ds)):
         cells.extend(zip(idx, cw))
         for ch in range(3):
-            bit_a.extend(ch * n_cells + c0 + grid["pa"])
-            bit_b.extend(ch * n_cells + c0 + grid["pb"])
+            bits.extend((ch * n_cells + c0 + grid["pa"]) | ((ch * n_cells + c0 + grid["pb"]) << 16))
         c0 += len(cw)
-    ftab = np.concatenate([
+    floats = np.concatenate([
         ds.ori_di, ds.ori_dj, ds.ori_w, ds.win_lo, ds.win_hi,
         ds.win_wrap.astype(np.float32), ds.all_offk, ds.all_offl,
         np.array([inv for _, inv in cells], np.float32),
     ]).astype(np.float32)
     start = np.cumsum([0] + [len(m) for m, _ in cells])
-    itab = np.concatenate([start, *[m for m, _ in cells], bit_a, bit_b]).astype(np.int32)
-    sizes = dict(n_ori=len(ds.ori_di), n_win=len(ds.win_lo), n_samp=ds.n_samples,
-                 n_cells=n_cells, n_bits=len(bit_a))
-    return ftab, itab, sizes
+    parts = [-(-len(m) // CELL_PART) for m, _ in cells]
+    first = np.cumsum([0] + parts)
+    members = np.concatenate([m for m, _ in cells]).astype(np.uint16)
+    members = np.pad(members, (0, len(members) % 2)).view(np.int32)
+    tab = np.concatenate([floats.view(np.int32), start, first, np.repeat(np.arange(n_cells), parts),
+                          bits, members]).astype(np.int32)
+    tab = np.pad(tab, (0, -len(tab) % 4))
+    sizes = (len(ds.ori_di), len(ds.win_lo), ds.n_samples, n_cells, int(first[-1]), len(bits),
+             ds.config.descriptor_words, len(tab))
+    return tab, sizes
 
 
 @functools.lru_cache(maxsize=8)
 def _tables(ds: DescribeStatics, device: torch.device):
-    ftab, itab, sizes = _host_tables(ds)
-    return torch.as_tensor(ftab, device=device), torch.as_tensor(itab, device=device), sizes
+    """The kernel's table on `device` and its sizes as a C array; raises
+    where they exceed the kernel's capacities."""
+    tab, sizes = _host_tables(ds)
+    caps = (_MAX_ORI, _MAX_WIN, _MAX_SAMP, _MAX_CELLS, _MAX_TASKS, None, 32, _MAX_TAB)
+    if any(c is not None and n > c for n, c in zip(sizes, caps)):
+        raise ValueError(f"describe: tables {sizes} exceed the kernel's capacities {caps}")
+    return torch.as_tensor(tab, device=device), (ctypes.c_int * len(sizes))(*sizes)
+
+
+@functools.lru_cache(maxsize=16)
+def _level_c_args(ss: ScaleSpaceStatics, single: bool):
+    lv_f, lv_i = _level_args(ss, single)
+    if ss.num_levels > _MAXL:
+        raise ValueError(f"describe: {ss.num_levels} levels exceed the kernel's {_MAXL}")
+    return ((ctypes.c_float * lv_f.size)(*lv_f.ravel().tolist()),
+            (ctypes.c_int * lv_i.size)(*lv_i.ravel().tolist()))
+
+
+@functools.cache
+def _entry():
+    P, I = ctypes.c_void_p, ctypes.c_int
+    return _build.function("describe", "describe", [
+        ctypes.POINTER(P), ctypes.POINTER(I), ctypes.POINTER(I), I, I, I, P, P, I,
+        P, P, P, P, P, P, P, P, P,
+    ])
+
+
+def launch(what: str, kps: Keypoints, stacks, ss: ScaleSpaceStatics, ds: DescribeStatics, single: bool):
+    """Run `describe_kernel` (csrc/describe.cu) on the slots of kps (x, y,
+    class_id, valid: (B, M) or (M,) CUDA tensors) over `stacks`: per octave
+    group (Lt, Lx, Ly) contiguous float32 (n, B, h, w) stacks, or with
+    single=True one frame's padded (L, H0, W0) stacks as one group.  Adds
+    one to `_build.launches[what]`.  Returns (angles (N,), words (N, W))
+    for the N = B * M slots."""
+    dev = kps.x.device
+    fields = []
+    for name, dtype in (("x", torch.float32), ("y", torch.float32), ("class_id", torch.int32),
+                        ("valid", torch.bool)):
+        f = getattr(kps, name)
+        if f.dtype != dtype or f.device != dev or f.shape != kps.x.shape:
+            raise ValueError(f"{what}: keypoint field {name} must be {dtype} {tuple(kps.x.shape)} on {dev}")
+        fields.append(f.contiguous())
+    B, M = (1, kps.x.shape[0]) if single else kps.x.shape
+    if len(stacks) > _MAXG:
+        raise ValueError(f"{what}: {len(stacks)} plane groups exceed the kernel's {_MAXG}")
+    ndim = 3 if single else 4
+    planes, gh, gw = [], [], []
+    for group in stacks:
+        for key, a in zip(_CHANNELS, group):
+            if (a.dtype != torch.float32 or a.ndim != ndim or not a.is_contiguous() or a.device != dev
+                    or a.shape != group[0].shape or (not single and a.shape[1] != B)):
+                raise ValueError(f"{what}: {key} must be a contiguous float32 "
+                                 f"{'(L, H0, W0)' if single else '(n, B, h, w)'} stack on {dev}")
+            planes.append(a.data_ptr())
+        gh.append(group[0].shape[-2])
+        gw.append(group[0].shape[-1])
+    tab, sizes = _tables(ds, dev)
+    lv_f, lv_i = _level_c_args(ss, single)
+    nwords = ds.config.descriptor_words
+    angles = torch.empty((B * M,), dtype=torch.float32, device=dev)
+    descs = torch.empty((B * M, nwords), dtype=torch.int32, device=dev)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    G = len(stacks)
+    with torch.cuda.device(dev):
+        err = _entry()((P * len(planes))(*planes), (I * G)(*gh), (I * G)(*gw), G, B, M, lv_f, lv_i,
+                       ss.num_levels, *(f.data_ptr() for f in fields), tab.data_ptr(), sizes,
+                       angles.data_ptr(), descs.data_ptr(), _build.stream_of(kps.x))
+    _build.check("describe", err, what)
+    _build.launches[what] += 1
+    return angles, descs
+
+
+def kernel_occupancy(device: torch.device) -> dict:
+    """Threads per block, resident blocks per SM, SMs, static shared memory
+    per block (bytes) and registers per thread of csrc/describe.cu's
+    kernel on a CUDA device."""
+    out = (ctypes.c_int * 5)()
+    fn = _build.function("describe", "describe_occupancy", [ctypes.POINTER(ctypes.c_int)])
+    with torch.cuda.device(device):
+        _build.check("describe", fn(out), "describe_occupancy")
+    return dict(zip(("threads", "blocks_per_sm", "sms", "smem_bytes", "registers"), out))
 
 
 def describe(kps: Keypoints, lvl_oct, ss: ScaleSpaceStatics, ds: DescribeStatics):
-    """Kernel 3 on CUDA tensors (one warp per keypoint slot), its plain
-    twin on CPU tensors.  Returns (angles (B, M), descriptors (B, M, W))."""
+    """Kernel 3 on CUDA tensors, its plain twin on CPU tensors.  Returns
+    (angles (B, M), descriptors (B, M, W))."""
     if kps.x.device.type == "cpu":
         return describe_plain(kps, lvl_oct, ss, ds)
     _build.require_cuda(kps.x, "describe")
     B, M = kps.x.shape
-    dev = kps.x.device
-    kpf, kpi = keypoint_geometry(kps, ss)
-    ftab, itab, sz = _tables(ds, dev)
-    if (len(lvl_oct) > _MAXG or sz["n_ori"] > _MAX_ORI or sz["n_win"] > _MAX_WIN
-            or sz["n_samp"] > _MAX_SAMP or sz["n_cells"] > _MAX_CELLS):
-        raise ValueError(f"describe: tables {sz} exceed the kernel's capacities")
-    planes, gh, gw = [], [], []
-    for o in lvl_oct:
-        for key in ("Lt", "Lx", "Ly"):
-            a = o[key]
-            if a.dtype != torch.float32 or not a.is_contiguous() or a.device != dev or a.shape[1] != B:
-                raise ValueError(f"describe: {key} must be a contiguous float32 (n, B, h, w) stack on {dev}")
-            planes.append(a.data_ptr())
-        gh.append(o["Lt"].shape[2])
-        gw.append(o["Lt"].shape[3])
-    nwords = ds.config.descriptor_words
-    angles = torch.empty((B, M), dtype=torch.float32, device=dev)
-    descs = torch.empty((B, M, nwords), dtype=torch.int32, device=dev)
-    G = len(lvl_oct)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn = _build.function("describe", "describe", [
-        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(I), ctypes.POINTER(I), I, I, I,
-        P, P, P, P, I, I, I, I, I, I, P, P, P,
-    ])
-    with torch.cuda.device(dev):
-        err = fn((P * len(planes))(*planes), (I * G)(*gh), (I * G)(*gw), G, B, B * M,
-                 kpf.data_ptr(), kpi.data_ptr(), ftab.data_ptr(), itab.data_ptr(),
-                 sz["n_ori"], sz["n_win"], sz["n_samp"], sz["n_cells"], sz["n_bits"], nwords,
-                 angles.data_ptr(), descs.data_ptr(), _build.stream_of(kps.x))
-    _build.check("describe", err, "describe")
-    _build.launches["describe"] += 1
-    return angles, descs
+    angles, descs = launch("describe", kps, [tuple(o[k] for k in _CHANNELS) for o in lvl_oct], ss, ds,
+                           single=False)
+    return angles.reshape(B, M), descs.reshape(B, M, -1)

@@ -94,12 +94,15 @@ def octave_groups(statics) -> tuple:
 
 
 def base_stage_plain(imgs: torch.Tensor, sigma0: float):
-    """(B, H, W) -> (seed = G_sigma0 * img, modg = |Scharr grad(G_1 * img)|)."""
+    """(B, H, W) -> (seed = G_sigma0 * img, modg = |Scharr grad(G_1 * img)|).
+    The root is taken in float64 and rounded to float32, which is the IEEE
+    float32 root (kernel 1's `sqrtf`): torch's float32 CPU root is not
+    always correctly rounded."""
     seed = gaussian_blur(imgs, sigma0)
     sm = gaussian_blur(imgs, 1.0)
     gx = scharr(sm, 1, 0, 1)
     gy = scharr(sm, 0, 1, 1)
-    return seed, torch.sqrt(gx * gx + gy * gy)
+    return seed, torch.sqrt((gx * gx + gy * gy).double()).float()
 
 
 def _check_planes(t: torch.Tensor, what: str) -> None:

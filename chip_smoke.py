@@ -10,7 +10,9 @@
 2. Holds each kernel against its plain PyTorch twin on the card, on the
    inputs its path gives it (kernels 1-4 and 7: batch VGA frames; kernels 5
    and 6: single VGA frames of the per-level path), with the stated
-   tolerances (kernels 1, 4 and 7 bit for bit), and times both.  A
+   tolerances (kernels 1, 3, 4, 6 and 7 bit for bit), and times both.
+   Kernels 3 and 6 (one CUDA kernel) also print their block shape,
+   resident blocks per SM, shared memory and registers.  A
    kernel's `ms` is the device time of its __global__ functions under
    torch.profiler (mean of 3 calls); the CUDA
    event time around its wrapper, host work included, is `wrapper_ms`
@@ -46,7 +48,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import re
 import subprocess
 import sys
@@ -256,6 +257,7 @@ def main() -> int:
         from akaze_tpu_torch.kernels import _build
         from akaze_tpu_torch.kernels import fed as fed_kernels
         from akaze_tpu_torch.kernels.describe import describe, describe_plain
+        from akaze_tpu_torch.kernels.describe import kernel_occupancy as describe_occupancy
         from akaze_tpu_torch.kernels.describe_single import describe_pallas, describe_pallas_plain
         from akaze_tpu_torch.kernels.fed import (
             base_stage, base_stage_plain, build_scale_space_levels, fused_level_batched,
@@ -415,24 +417,27 @@ def main() -> int:
     ang_k, desc_k = describe(kps, lvl_oct, ss, ds)
     ang_p, desc_p = describe_plain(kps, lvl_oct, ss, ds)
     v = kps.valid
-    d_ang = (ang_k - ang_p).abs()[v]
-    d_ang = torch.minimum(d_ang, 2 * math.pi - d_ang)
-    err3 = d_ang.max().item()
-    ham = hamming(np, desc_k[v].cpu().numpy(), desc_p[v].cpu().numpy())
-    print(f"describe     {int(v.sum())} valid slots: angle max |err| {err3:.3e} rad (tol 1e-5), "
-          f"Hamming mean {ham.mean():.3f} (tol 3) max {ham.max()} (tol 12)", flush=True)
-    if not (err3 <= 1e-5 and ham.mean() <= 3 and ham.max() <= 12):
-        fail("describe disagrees with its plain twin")
+    err3 = (ang_k - ang_p).abs().max().item()
+    nbad = int((desc_k != desc_p).any(dim=-1).sum())
+    print(f"describe     {int(v.sum())} valid of {v.numel()} slots: angle max |err| {err3:.3e} rad, "
+          f"{nbad} descriptors differ (tol: bit-equal)", flush=True)
+    if not (torch.equal(ang_k, ang_p) and torch.equal(desc_k, desc_p)):
+        fail("describe differs from its plain twin (bit-equality required)")
     if (desc_k[~v] != 0).any() or (ang_k[~v] != 0).any():
         fail("describe wrote non-zero output to invalid slots")
+    occ = describe_occupancy(dev)
+    print(f"  describe_kernel: {occ['threads']} threads per block, {occ['blocks_per_sm']} resident blocks per "
+          f"SM x {occ['sms']} SMs (the default grid), {occ['smem_bytes']} B static shared memory, "
+          f"{occ['registers']} registers per thread", flush=True)
     tm3 = times(lambda: describe(kps, lvl_oct, ss, ds))
     plain3 = timed(torch, lambda: describe_plain(kps, lvl_oct, ss, ds), reps=1)
     nv = int(v.sum())
     n_samples = 2 * len(ds.ori_di) + 3 * ds.n_samples
-    # Valid slots read their samples and write angle + 16 words; every slot
-    # reads its 9 geometry words.  ~31 kflop per valid slot (orientation
-    # 3.3k, windows 13.7k, M-LDB sampling 6.2k, cell means 7.4k, bits 0.5k).
-    nbytes3 = 4 * (nv * n_samples + B * ss.config.max_keypoints * (9 + 17))
+    # Valid slots read their samples; every slot reads x, y, class_id and
+    # valid (13 B) and writes angle + 16 words.  ~31 kflop per valid slot
+    # (orientation 3.3k, windows 13.7k, M-LDB sampling 6.2k, cell means
+    # 7.4k, bits 0.5k).
+    nbytes3 = 4 * nv * n_samples + v.numel() * (13 + 4 * 17)
     record("describe", source="akaze_tpu_torch/csrc/describe.cu",
            replaces="akaze_tpu/kernels/describe_fused.py:562", max_abs_err=err3, **tm3,
            plain_ms=plain3, bound=bound_ms(nbytes3, 31_000 * nv))
@@ -559,26 +564,22 @@ def main() -> int:
         ang_k, desc_k = describe_pallas(*a6)
         ang_p, desc_p = describe_pallas_plain(*a6)
         v = kp.valid
-        d_ang = (ang_k - ang_p).abs()[v]
-        err6 = max(err6, torch.minimum(d_ang, 2 * math.pi - d_ang).max().item())
+        err6 = max(err6, (ang_k - ang_p).abs().max().item())
         n6 += int(v.sum())
-        if not torch.equal(desc_k, desc_p):
-            fail(f"describe_pallas frame {f}: descriptors differ from its plain twin (bit-equality required)")
-        if (ang_k[~v] != 0).any():
-            fail("describe_pallas wrote a non-zero angle to an invalid slot")
+        if not (torch.equal(ang_k, ang_p) and torch.equal(desc_k, desc_p)):
+            fail(f"describe_pallas frame {f}: differs from its plain twin (bit-equality required)")
+        if (ang_k[~v] != 0).any() or (desc_k[~v] != 0).any():
+            fail("describe_pallas wrote non-zero output to an invalid slot")
         argv6.append(a6)
-    print(f"describe_pallas {n6} valid slots in 4 frames: angle max |err| {err6:.3e} rad "
-          f"(tol 1e-5), descriptors bit-equal", flush=True)
-    if not err6 <= 1e-5:
-        fail("describe_pallas angles disagree with its plain twin")
+    print(f"describe_pallas {n6} valid slots in 4 frames: angles and descriptors bit-equal", flush=True)
     tm6 = times(lambda: describe_pallas(*argv6[0]))
     plain6 = timed(torch, lambda: describe_pallas_plain(*argv6[0]), reps=1)
     nv6 = int(argv6[0][0].valid.sum())
-    # As kernel 3: valid slots read their samples, every slot its geometry
-    # (7 words) and its 17 output words.
+    # As kernel 3: valid slots read their samples, every slot its fields
+    # (13 B) and writes its 17 output words.
     record("describe_pallas", source="akaze_tpu_torch/csrc/describe.cu",
            replaces="akaze_tpu/kernels/describe_pallas.py:350", max_abs_err=err6, **tm6, plain_ms=plain6,
-           bound=bound_ms(4 * (nv6 * n_samples + config.max_keypoints * (7 + 17)), 31_000 * nv6))
+           bound=bound_ms(4 * nv6 * n_samples + config.max_keypoints * (13 + 4 * 17), 31_000 * nv6))
     del frames5, seed5, modg5, argv5, one5, st6, kps6, argv6, got, ref
     torch.cuda.empty_cache()
 
