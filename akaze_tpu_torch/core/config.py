@@ -1,5 +1,6 @@
 """Configuration dataclasses of the PyTorch port (own copy of the JAX
-package's `akaze_tpu/core/config.py`, same fields and defaults).
+package's `akaze_tpu/core/config.py`: `AkazeConfig`, `MatchConfig`,
+`RansacConfig` and `SfmConfig`, same fields and defaults).
 
 The TPU execution knobs (`pallas_octaves`, `patch_backend`,
 `describe_group`, `describe_loop`, `deep_octave_frames`,
@@ -95,3 +96,36 @@ class MatchConfig:
     max_distance: int = 486
     # TPU-only knob, kept for 1:1 conversion; not read by the port.
     backend: str = "auto"
+
+
+@dataclasses.dataclass(frozen=True)
+class RansacConfig:
+    """Fixed-iteration RANSAC for the essential matrix: `num_iterations`
+    8-point hypotheses scored by Sampson distance (threshold in normalized
+    image coordinates), then the guarded LO-RANSAC refit of the top
+    `refit_beam` hypotheses."""
+
+    num_iterations: int = 512
+    sample_size: int = 8  # 8-point algorithm
+    inlier_threshold: float = 1e-3
+    seed: int = 0
+    refit_beam: int = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class SfmConfig:
+    """Incremental SfM / bundle adjustment options.  The port reads only
+    `keyframe_min_tracked` (the video front end's keyframe rule) so far; the
+    other fields are kept so that a configuration converts field for field
+    between the two packages."""
+
+    ba_iterations: int = 10
+    ba_obs_per_point: int = 8
+    lm_lambda_init: float = 1e-3
+    lm_lambda_max: float = 1e6
+    huber_delta: float = 3.0
+    # A new keyframe is inserted when the matches to the last keyframe fall
+    # below this fraction of the keyframe's reference count.
+    keyframe_min_tracked: float = 0.6
+    pgo_odometry_sigma: float = 5e-5
+    pgo_closure_sigma: float = 2e-3

@@ -4,9 +4,13 @@ The system has no learned weights: what crosses is the configuration and
 the extracted `Features`.  Both directions go through plain dicts and numpy
 arrays, so this module imports nothing of the JAX package:
 
-    cfg = config_from_fields(dataclasses.asdict(jax_config))
+    cfg = config_from_fields(dataclasses.asdict(jax_config))  # any of the four configs
     feats = features_from_numpy(arrays, device="cuda")
     arrays = features_to_numpy(feats)   # descriptors as a uint32 view
+    scores = jax_uniform(0, (512, 1024))  # = jax.random.uniform(PRNGKey(0), ...)
+
+`jax_uniform` lets a machine without JAX feed the port the very random
+scores of a JAX experiment (`estimate_relative_pose_fn(..., sample_scores=)`).
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from akaze_tpu_torch.core.config import AkazeConfig, Diffusivity, MatchConfig
+from akaze_tpu_torch.core.config import AkazeConfig, Diffusivity, MatchConfig, RansacConfig, SfmConfig
 from akaze_tpu_torch.core.device import resolve_device
 from akaze_tpu_torch.core.types import Features, Keypoints
 
@@ -28,12 +32,14 @@ _KEYPOINT_DTYPES = {
 
 
 def config_from_fields(fields: dict):
-    """An AkazeConfig or MatchConfig from the fields of either package's
-    config (e.g. `dataclasses.asdict`).  The diffusivity may be an enum
-    member of either package or its string value."""
-    match_names = {f.name for f in dataclasses.fields(MatchConfig)}
-    if set(fields) <= match_names:
-        return MatchConfig(**fields)
+    """An AkazeConfig, MatchConfig, RansacConfig or SfmConfig from the
+    fields of either package's config (e.g. `dataclasses.asdict`), told
+    apart by their field names (no two of the four share one).  The
+    diffusivity may be an enum member of either package or its string
+    value."""
+    for cls in (MatchConfig, RansacConfig, SfmConfig):
+        if set(fields) <= {f.name for f in dataclasses.fields(cls)}:
+            return cls(**fields)
     fields = dict(fields)
     if "diffusivity" in fields:
         d = fields["diffusivity"]
@@ -58,3 +64,33 @@ def features_from_numpy(arrays: dict, device="cuda") -> Features:
     }
     desc = np.array(arrays["descriptors"]).view(np.int32)
     return Features(keypoints=Keypoints(**kp), descriptors=torch.from_numpy(desc).to(device))
+
+
+def _threefry2x32(k1, k2, x1, x2):
+    """The Threefry-2x32 block cipher (20 rounds) on uint32 arrays."""
+    ks = (k1, k2, k1 ^ k2 ^ np.uint32(0x1BD11BDA))
+    x = [x1 + ks[0], x2 + ks[1]]
+    for i in range(5):
+        for r in ((13, 15, 26, 6), (17, 29, 16, 24))[i % 2]:
+            x[0] = x[0] + x[1]
+            x[1] = (x[1] << np.uint32(r)) | (x[1] >> np.uint32(32 - r))
+            x[1] = x[0] ^ x[1]
+        x[0] = x[0] + ks[(i + 1) % 3]
+        x[1] = x[1] + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x
+
+
+def jax_uniform(seed: int, shape) -> np.ndarray:
+    """float32 numpy array equal to `jax.random.uniform(jax.random.PRNGKey(seed),
+    shape)` under JAX's default generator (threefry2x32, partitionable
+    counters): element i is Threefry(key, (i >> 32, i & 0xffffffff)), the
+    two output words xored, its top 23 bits as the mantissa of a float in
+    [1, 2), minus 1.  Seeds are 0 <= seed < 2**32 (JAX's 32-bit keys)."""
+    if not 0 <= seed < 2**32:
+        raise ValueError(f"jax_uniform takes 0 <= seed < 2**32, got {seed}")
+    idx = np.arange(int(np.prod(shape)), dtype=np.uint64)
+    hi, lo = (idx >> np.uint64(32)).astype(np.uint32), (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    with np.errstate(over="ignore"):
+        b1, b2 = _threefry2x32(np.uint32(0), np.uint32(seed), hi, lo)
+    bits = ((b1 ^ b2) >> np.uint32(9)) | np.uint32(0x3F800000)
+    return np.maximum(np.float32(0.0), bits.view(np.float32) - np.float32(1.0)).reshape(shape)

@@ -38,9 +38,26 @@
 4. Runs the three paths at a small size through the kernels and through
    the plain twins, both on the card, and holds them to the slice gates
    (paths A and B: equal keypoints and descriptors).
+5. Video (BASELINE config 4): process_video on 500 VGA frames uploaded
+   once, batch 16, default configs; 1 warm-up, 1 timed call between device
+   syncs (frames/s, keyframes, keypoints and matches, launches of kernels
+   1-4 counted from zero), then the split by CUDA events (extract,
+   consecutive match, keyframe loop; the loop under
+   torch.cuda.set_sync_debug_mode("error"), so a host sync in it fails the
+   run), then the first 24 frames through the kernels and through the
+   twins, which must be exactly equal.
+6. Two-view (BASELINE config 2): P = 32 VGA pairs per rep (frame sets of
+   video_sequence seeds 1-3, uploaded once), extract_batch + batched match
+   + batched estimate_relative_pose with RansacConfig(num_iterations=256);
+   1 warm-up and 4 timed reps (pairs/s, split by CUDA events), one RANSAC
+   call under torch.profiler (device launches, torch.linalg time); then
+   multi_plane_pair seeds 5-8 at 240x320 with RansacConfig(512, 2e-3)
+   against the reference bound (rotation <= 1.5 deg, t-direction <= 6 deg,
+   >= 30 inliers), and seed 6's card pose against the CPU pose on the same
+   correspondences and random scores.
 
-Prints a JSON line of per-kernel numbers, the card line, and last
-{"ok": true, "device": {...}}.  Exits non-zero without a result when no
+Prints a JSON line of the sequence and two-view numbers, a JSON line of
+per-kernel numbers, the card line, and last {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 GPU is present, when the package is missing, or when any check fails.
 """
 
@@ -231,6 +248,255 @@ def ptxas_report(logs: dict) -> list:
 
 def hamming(np, a, b):
     return np.unpackbits((a ^ b).view(np.uint8), axis=-1).sum(-1)
+
+
+def rot_deg(np, Ra, Rb) -> float:
+    """Angle of the rotation between two (3, 3) rotations, in degrees."""
+    Ra, Rb = np.asarray(Ra, np.float64), np.asarray(Rb, np.float64)
+    return float(np.degrees(np.arccos(np.clip((np.trace(Ra @ Rb.T) - 1) / 2, -1, 1))))
+
+
+def dir_deg(np, ta, tb, signed: bool = True) -> float:
+    """Angle between two directions in degrees; signed=False is the
+    reference bound's sign-blind t-direction error."""
+    ta, tb = np.asarray(ta, np.float64), np.asarray(tb, np.float64)
+    c = ta @ tb / (np.linalg.norm(ta) * np.linalg.norm(tb))
+    return float(np.degrees(np.arccos(np.clip(c if signed else abs(c), -1, 1))))
+
+
+def phase_video(torch, np, dev, reset_counts, out: dict) -> None:
+    """Phase 5: the video front end at full width (see the module doc)."""
+    from akaze_tpu_torch.core.config import AkazeConfig, MatchConfig, SfmConfig
+    from akaze_tpu_torch.kernels import _build
+    from akaze_tpu_torch.matching.video import (
+        consecutive_matches, extract_frames, process_video, process_video_fn, select_keyframes,
+    )
+    from akaze_tpu_torch.utils.synthetic import video_sequence
+
+    T, H, W, batch = 500, 480, 640, 16
+    print(f"\n== video: process_video on {T} frames of {W}x{H}, batch {batch}", flush=True)
+    t0 = time.perf_counter()
+    frames = torch.from_numpy(video_sequence(T, H, W, seed=0)).to(dev)
+    torch.cuda.synchronize()
+    print(f"frames made and uploaded in {time.perf_counter() - t0:.1f} s "
+          f"({frames.numel() * 4 / 1e6:.0f} MB on the card)", flush=True)
+    config, mcfg, scfg = AkazeConfig(), MatchConfig(max_distance=120), SfmConfig()
+    t0 = time.perf_counter()
+    process_video(frames, config, batch=batch, device=dev)
+    torch.cuda.synchronize()
+    print(f"warm-up call {time.perf_counter() - t0:.3f} s", flush=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = process_video(frames, config, batch=batch, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    kp = res.features.keypoints
+    kp_mean = kp.count().double().mean().item()
+    if not (torch.isfinite(kp.x[kp.valid]).all() and kp_mean > 0):
+        fail("video: no or non-finite keypoints")
+    if res.features.descriptors.shape != (T, config.max_keypoints, 16) or res.keyframes[0] != 0:
+        fail("video: unexpected output shapes or keyframes")
+    chunks = -(-T // batch)
+    expect = {"base_stage": chunks, "fused_octave": 4 * chunks, "describe": chunks, "match": 1 + (T - 1)}
+    print(f"timed call {wall:.3f} s: {T / wall:.1f} frames/s; {len(res.keyframes)} keyframes; keypoints/frame "
+          f"mean {kp_mean:.1f}; accepted matches/pair mean {res.match_counts[1:].mean():.1f}; matches to the "
+          f"keyframe mean {res.kf_match_counts[1:].mean():.1f}", flush=True)
+    print(f"kernels launched by the timed call: {counts}", flush=True)
+    for name, n in expect.items():
+        if counts[name] != n:
+            fail(f"video: kernel {name} launched {counts[name]} times, expected {n}")
+
+    # The split, each stage called as process_video calls it.
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    feats = extract_frames(frames, config, batch)
+    ev[1].record()
+    matches = consecutive_matches(feats, mcfg)
+    ev[2].record()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")  # a host sync in the loop raises
+    try:
+        kf_counts, is_kf = select_keyframes(feats, mcfg, scfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    host_loop = time.perf_counter() - t0
+    ev[3].record()
+    torch.cuda.synchronize()
+    split = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    print(f"split (CUDA events): extract {split[0]:.3f} ms, consecutive match {split[1]:.3f} ms, keyframe loop "
+          f"{split[2]:.3f} ms ({T - 1} matches; host issued it in {host_loop * 1e3:.3f} ms, no host sync)",
+          flush=True)
+    if not (np.array_equal(kf_counts.cpu().numpy(), res.kf_match_counts)
+            and np.array_equal(matches.count().cpu().numpy(), res.match_counts)):
+        fail("video: the split run differs from the timed call")
+
+    # The first 24 frames through the kernels and through the plain twins.
+    sub = frames[:24]
+    got = process_video_fn(sub, config, mcfg, scfg, batch=batch)
+    ref = process_video_fn(sub, config, mcfg, scfg, batch=batch, plain=True)
+    same = (got.keyframes == ref.keyframes and np.array_equal(got.match_counts, ref.match_counts)
+            and np.array_equal(got.kf_match_counts, ref.kf_match_counts)
+            and all(torch.equal(getattr(got.matches_prev, k), getattr(ref.matches_prev, k))
+                    for k in ("idx_b", "distance", "accepted")))
+    print(f"24 frames (chunks 16 + 8), kernels vs plain twins: keyframes {got.keyframes} / {ref.keyframes}, "
+          f"match counts, keyframe counts and matches {'exactly equal' if same else 'DIFFERENT'}", flush=True)
+    if not same:
+        fail("video through the kernels differs from the plain twins")
+    out["video"] = {
+        "frames": T, "batch": batch, "fps": T / wall, "wall_s": wall, "keyframes": len(res.keyframes),
+        "keypoints_per_frame": kp_mean, "matches_per_pair": float(res.match_counts[1:].mean()),
+        "extract_ms": split[0], "match_ms": split[1], "keyframe_loop_ms": split[2],
+        "keyframe_loop_host_ms": host_loop * 1e3, "launches": {k: counts[k] for k in expect},
+    }
+
+
+def phase_two_view(torch, np, dev, reset_counts, out: dict) -> None:
+    """Phase 6: two-view pose at full width and against the reference bound
+    (see the module doc)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from akaze_tpu_torch.core.config import AkazeConfig, MatchConfig, RansacConfig
+    from akaze_tpu_torch.frontend.pipeline import extract_batch
+    from akaze_tpu_torch.geometry.twoview import estimate_relative_pose, estimate_relative_pose_fn, normalize_points
+    from akaze_tpu_torch.interop import jax_uniform
+    from akaze_tpu_torch.kernels import _build
+    from akaze_tpu_torch.matching.hamming import match, match_features
+    from akaze_tpu_torch.utils.synthetic import multi_plane_pair, video_sequence
+
+    P, H, W = 32, 480, 640
+    intr = (640.0, 640.0, 320.0, 240.0)
+    config, mcfg, rcfg = AkazeConfig(), MatchConfig(), RansacConfig(num_iterations=256)
+    print(f"\n== two-view: {P} VGA pairs per rep, extract + match + RANSAC "
+          f"(num_iterations {rcfg.num_iterations}, beam {rcfg.refit_beam})", flush=True)
+    frame_sets = [torch.from_numpy(video_sequence(2 * P, H, W, seed=s)).to(dev) for s in (1, 2, 3)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(rcfg.seed)
+
+    def pose_of(feats, m):
+        kp, idx = feats.keypoints, m.idx_b.long()
+        x1 = normalize_points(kp.x[0::2], kp.y[0::2], intr)
+        x2 = normalize_points(torch.gather(kp.x[1::2], 1, idx), torch.gather(kp.y[1::2], 1, idx), intr)
+        return (x1, x2, m.accepted), estimate_relative_pose(x1, x2, m.accepted, rcfg, generator=gen, device=dev)
+
+    def rep(frames, ev):
+        ev[0].record()
+        feats = extract_batch(frames, config, device=dev)
+        ev[1].record()
+        kp = feats.keypoints
+        m = match(feats.descriptors[0::2], kp.valid[0::2], feats.descriptors[1::2], kp.valid[1::2], mcfg, device=dev)
+        ev[2].record()
+        args, pose = pose_of(feats, m)
+        ev[3].record()
+        return args, pose
+
+    events = lambda: [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    rep(frame_sets[0], events())  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    reps, splits, inliers = 4, [], []
+    t0 = time.perf_counter()
+    for r in range(reps):
+        splits.append(events())
+        args, pose = rep(frame_sets[r % len(frame_sets)], splits[-1])
+        inliers.append(pose.num_inliers)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    ms = [[ev[i].elapsed_time(ev[i + 1]) for i in range(3)] for ev in splits]
+    inl = torch.stack(inliers).cpu()
+    print(f"{reps} reps in {wall:.3f} s: {P * reps / wall:.1f} pairs/s; per rep (CUDA events) extract "
+          f"{[round(x[0], 3) for x in ms]} ms, match {[round(x[1], 3) for x in ms]} ms, RANSAC "
+          f"{[round(x[2], 3) for x in ms]} ms", flush=True)
+    print(f"inliers per pair: mean {inl.double().mean().item():.1f}, min {int(inl.min())}; kernels launched by "
+          f"the timed reps: {counts}", flush=True)
+    for name in ("base_stage", "fused_octave", "describe", "match"):
+        if counts[name] <= 0:
+            fail(f"two-view: kernel {name} was not launched")
+    if inl.min() <= 0 or len({int(x.sum()) for x in inl}) < 2:
+        fail("two-view: a pair without inliers, or distinct inputs gave identical inlier counts")
+
+    # One RANSAC call under the profiler: device launches and torch.linalg.
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        estimate_relative_pose(*args, rcfg, generator=gen, device=dev)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    dev_rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in dev_rows) / 1e3
+    n_launch = sum(e.count for e in dev_rows)
+    print(f"RANSAC under the profiler: wall {prof_wall:.3f} ms, device busy {dev_ms:.3f} ms in {n_launch} device "
+          f"launches (kernels, copies, fills); largest:", flush=True)
+    for e in sorted(dev_rows, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:8]:
+        print(f"  {getattr(e, 'self_device_time_total', 0.0) / 1e3:10.3f} ms {e.count:6d} calls  {e.key[:90]}",
+              flush=True)
+    # torch.linalg at one RANSAC call's shapes, by CUDA events (median of 3):
+    # 3 refit rounds of QR (P, M, N, 9) -> R, SVD of R (9x9) and of e (3x3);
+    # _recover_pose's SVD of E (3x3) and 2 determinants.
+    M, N = min(rcfg.refit_beam, rcfg.num_iterations), args[2].shape[-1]
+    aw, r9, e3 = (torch.rand(s, device=dev) for s in ((P, M, N, 9), (P, M, 9, 9), (P, M, 3, 3)))
+    lin = {"qr": timed(torch, lambda: torch.linalg.qr(aw, mode="r")),
+           "svd9": timed(torch, lambda: torch.linalg.svd(r9)),
+           "svd3": timed(torch, lambda: torch.linalg.svd(e3)),
+           "det3": timed(torch, lambda: torch.linalg.det(e3))}
+    lin_ms = 3 * lin["qr"] + 3 * lin["svd9"] + 4 * lin["svd3"] + 2 * lin["det3"]
+    print(f"torch.linalg per RANSAC call ({P} pairs x beam {M}, N {N}): {lin_ms:.3f} ms of "
+          f"{sum(x[2] for x in ms) / reps:.3f} (3 x qr {lin['qr']:.3f}, 3 x svd 9x9 {lin['svd9']:.3f}, "
+          f"4 x svd 3x3 {lin['svd3']:.3f}, 2 x det {lin['det3']:.3f} ms)", flush=True)
+    del frame_sets, args
+    torch.cuda.empty_cache()
+
+    # Accuracy against the reference bound, and the card against the CPU.
+    # The bound was set on tests/test_two_view_bound.py's random scores,
+    # jax.random.uniform(PRNGKey(0)), reproduced here by interop.jax_uniform;
+    # the port's own generator gives other draws, whose errors are printed
+    # beside (other draws miss the bound on some scenes in the reference
+    # too: tools/twoview_draw_sweep.py).
+    print("\n== two-view accuracy: multi_plane_pair seeds 5-8 (240x320), RansacConfig(512, 2e-3)", flush=True)
+    acfg = RansacConfig(num_iterations=512, inlier_threshold=2e-3)
+    errors = {}
+    for seed in (5, 6, 7, 8):
+        img_a, img_b, R_gt, t_gt, intr2 = multi_plane_pair(seed=seed)
+        feats = extract_batch(np.stack([img_a, img_b]), config, device=dev)
+        mm = match_features(feats.index(0), feats.index(1), mcfg, device=dev)
+        kp, idx = feats.keypoints, mm.idx_b.long()
+        x1 = normalize_points(kp.x[0], kp.y[0], intr2)
+        x2 = normalize_points(kp.x[1][idx], kp.y[1][idx], intr2)
+        shape = (acfg.num_iterations, x1.shape[0])
+        ref_draws = torch.from_numpy(jax_uniform(acfg.seed, shape)).to(dev)
+        own_draws = torch.rand(shape, generator=torch.Generator(device=dev).manual_seed(acfg.seed), device=dev)
+        card = estimate_relative_pose_fn(x1, x2, mm.accepted, acfg, sample_scores=ref_draws)
+        own = estimate_relative_pose_fn(x1, x2, mm.accepted, acfg, sample_scores=own_draws)
+        rot, tdir = rot_deg(np, card.R.cpu().numpy(), R_gt), dir_deg(np, card.t.cpu().numpy(), t_gt, signed=False)
+        own_rot, own_tdir = rot_deg(np, own.R.cpu().numpy(), R_gt), dir_deg(np, own.t.cpu().numpy(), t_gt, signed=False)
+        n_in = int(card.num_inliers)
+        print(f"seed {seed}: {int(mm.count())} matches; the reference test's draws: {n_in} inliers, rotation error "
+              f"{rot:.4f} deg, t-direction error {tdir:.4f} deg (bound 1.5 / 6); the port's own generator (seed "
+              f"{acfg.seed}): {int(own.num_inliers)} inliers, {own_rot:.4f} / {own_tdir:.4f} deg", flush=True)
+        errors[seed] = {"rot_deg": rot, "tdir_deg": tdir, "inliers": n_in, "own_generator": {
+            "rot_deg": own_rot, "tdir_deg": own_tdir, "inliers": int(own.num_inliers)}}
+        if not (rot <= 1.5 and tdir <= 6.0 and n_in >= 30):
+            fail(f"two-view seed {seed}: outside the reference bound or under 30 inliers")
+        if seed == 6:
+            cpu = estimate_relative_pose_fn(x1.cpu(), x2.cpu(), mm.accepted.cpu(), acfg, sample_scores=own_draws.cpu())
+            d_rot = rot_deg(np, own.R.cpu().numpy(), cpu.R.numpy())
+            d_t = dir_deg(np, own.t.cpu().numpy(), cpu.t.numpy())
+            n_own, n_cpu = int(own.num_inliers), int(cpu.num_inliers)
+            print(f"seed 6, card against the CPU on the same correspondences and the own generator's scores: R "
+                  f"{d_rot:.5f} deg, t-direction {d_t:.5f} deg, inliers {n_own} / {n_cpu}", flush=True)
+            if not (d_rot <= 0.05 and d_t <= 0.2 and abs(n_own - n_cpu) <= max(1, 0.01 * n_cpu)):
+                fail("two-view: the card's pose differs from the CPU's beyond R 0.05 / t 0.2 deg / inliers 1 %")
+            errors["card_vs_cpu"] = {"rot_deg": d_rot, "tdir_deg": d_t, "inliers": [n_own, n_cpu]}
+    out["two_view"] = {
+        "pairs": P, "reps": reps, "pairs_per_s": P * reps / wall, "wall_s": wall,
+        "extract_ms": [x[0] for x in ms], "match_ms": [x[1] for x in ms], "ransac_ms": [x[2] for x in ms],
+        "ransac_profiled": {"wall_ms": prof_wall, "device_ms": dev_ms, "device_launches": n_launch},
+        "linalg_ms": lin_ms, "linalg_calls_ms": lin,
+        "launches": {k: counts[k] for k in ("base_stage", "fused_octave", "describe", "match")},
+        "accuracy": errors,
+    }
 
 
 def main() -> int:
@@ -783,6 +1049,15 @@ def main() -> int:
               f"keypoints and descriptors {'equal' if same else 'DIFFERENT'}", flush=True)
         if not same:
             fail(f"{name} through the kernels differs from the plain twins")
+
+    del small, fk, fp, mk, mp, pairs
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ phases 5-6
+    sequence = {}
+    phase_video(torch, np, dev, reset_counts, sequence)
+    phase_two_view(torch, np, dev, reset_counts, sequence)
+    print(json.dumps({"sequence_two_view": sequence}), flush=True)
 
     # The level chain's launch structure: __global__ launches and device
     # time under the profiler (phase 2's rows).

@@ -1,7 +1,8 @@
 """The port's seven CUDA kernels against their plain PyTorch twins on the
-card, and the three paths (batched extract + match, the same with the
-chunked describe, the per-level extract_fn) through the kernels against the
-paths through the twins.  Every test needs an NVIDIA GPU and skips without one; the file
+card, the three paths (batched extract + match, the same with the chunked
+describe, the per-level extract_fn) and the video front end through the
+kernels against the same through the twins, and the two-view pose on the
+card against the CPU and the reference bound.  Every test needs an NVIDIA GPU and skips without one; the file
 imports no JAX, so it runs on a GPU machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -13,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from akaze_tpu_torch.core.config import AkazeConfig, Diffusivity, MatchConfig
+from akaze_tpu_torch.core.config import AkazeConfig, Diffusivity, MatchConfig, RansacConfig, SfmConfig
 from akaze_tpu_torch.frontend.detect import detect, detect_dense, find_candidates_oct
 from akaze_tpu_torch.frontend.pipeline import _statics, extract_batch, extract_batch_fn, extract_fn
 from akaze_tpu_torch.frontend.scale_space import contrast_factor_from_modg, half_size
@@ -27,10 +28,14 @@ from akaze_tpu_torch.kernels.fed import (
 )
 from akaze_tpu_torch.kernels.patch import gather_patches, gather_patches_plain
 from akaze_tpu_torch.kernels.match import match_reduce, match_reduce_plain
-from akaze_tpu_torch.matching.hamming import match_fn
-from akaze_tpu_torch.utils.synthetic import video_sequence
+from akaze_tpu_torch.geometry.twoview import estimate_relative_pose, estimate_relative_pose_fn, normalize_points
+from akaze_tpu_torch.interop import jax_uniform
+from akaze_tpu_torch.matching.hamming import match_features, match_fn
+from akaze_tpu_torch.matching.video import extract_frames, process_video_fn, select_keyframes
+from akaze_tpu_torch.utils.synthetic import multi_plane_pair, video_sequence
 from torch_port_helpers import (  # noqa: F401 (cuda: a fixture)
-    MATCH_CASES, cuda, custom_plan, match_case, match_descriptors, pair_keypoints,
+    MATCH_CASES, ROT_BOUND_DEG, TDIR_BOUND_DEG, assert_same_pose, cuda, custom_plan, match_case,
+    match_descriptors, pair_keypoints, rot_deg, tdir_err_deg,
 )
 
 pytestmark = pytest.mark.gpu
@@ -375,3 +380,76 @@ def test_per_level_path_kernels_vs_plain(cuda, size):
     assert torch.equal(fk.keypoints.valid, fp.keypoints.valid)
     assert torch.equal(fk.keypoints.x, fp.keypoints.x) and torch.equal(fk.keypoints.y, fp.keypoints.y)
     assert torch.equal(fk.descriptors, fp.descriptors)
+
+
+def test_video_kernels_vs_plain(cuda):
+    """12 VGA frames at batch 5 (chunks of 5, 5 and a tail of 2): through
+    kernels 1-4 and through the twins, exactly equal."""
+    frames = _frames(cuda, n=12, seed=6, size=(480, 640))
+    args = (AkazeConfig(), MatchConfig(max_distance=120), SfmConfig())
+    n0 = dict(_build.launches)
+    got = process_video_fn(frames, *args, batch=5)
+    n = {k: _build.launches[k] - n0[k] for k in n0}
+    assert n["base_stage"] == n["describe"] == 3 and n["fused_octave"] == 12
+    assert n["match"] == 1 + 11  # the consecutive pairs, then one per frame of the keyframe loop
+    ref = process_video_fn(frames, *args, batch=5, plain=True)
+    assert got.keyframes == ref.keyframes
+    np.testing.assert_array_equal(got.match_counts, ref.match_counts)
+    np.testing.assert_array_equal(got.kf_match_counts, ref.kf_match_counts)
+    for name in ("idx_b", "distance", "accepted"):
+        assert torch.equal(getattr(got.matches_prev, name), getattr(ref.matches_prev, name)), name
+    assert (got.match_counts[1:] > 100).all()
+
+
+def test_keyframe_loop_issues_no_host_sync(cuda):
+    frames = torch.cat([_frames(cuda, n=4, seed=5), _frames(cuda, n=4, seed=99).flip(1, 2)])
+    feats = extract_frames(frames, AkazeConfig(), batch=8)
+    mcfg, scfg = MatchConfig(max_distance=120), SfmConfig(keyframe_min_tracked=0.7)
+    select_keyframes(feats.index(slice(0, 2)), mcfg, scfg)  # loads kernel 4's library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        counts, flags = select_keyframes(feats, mcfg, scfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ref_counts, ref_flags = select_keyframes(feats, mcfg, scfg, plain=True)
+    assert torch.equal(counts, ref_counts) and torch.equal(flags, ref_flags)
+    assert bool(flags[4])  # the scene cut
+
+
+def _plane_correspondences(cuda, seed):
+    img_a, img_b, R_gt, t_gt, intr = multi_plane_pair(seed=seed)
+    feats = extract_batch(np.stack([img_a, img_b]), device=cuda)
+    m = match_features(feats.index(0), feats.index(1), device=cuda)
+    kp = feats.keypoints
+    x1 = normalize_points(kp.x[0], kp.y[0], intr)
+    x2 = normalize_points(kp.x[1][m.idx_b.long()], kp.y[1][m.idx_b.long()], intr)
+    return x1, x2, m.accepted, R_gt, t_gt
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_two_view_card_matches_cpu(cuda, seed):
+    """The card's RANSAC against the port's CPU RANSAC on the same
+    correspondences and the same random scores."""
+    x1, x2, mask, _, _ = _plane_correspondences(cuda, seed)
+    cfg = RansacConfig(num_iterations=512, inlier_threshold=2e-3)
+    g = torch.rand((cfg.num_iterations, mask.shape[0]), generator=torch.Generator(device=cuda).manual_seed(seed),
+                   device=cuda)
+    card = estimate_relative_pose_fn(x1, x2, mask, cfg, sample_scores=g)
+    cpu = estimate_relative_pose_fn(x1.cpu(), x2.cpu(), mask.cpu(), cfg, sample_scores=g.cpu())
+    assert_same_pose(cpu, card)
+
+
+@pytest.mark.parametrize("seed", [5, 6, 7, 8])
+def test_two_view_within_reference_bound_on_card(cuda, seed):
+    """tests/test_two_view_bound.py's gate on the card, on that test's
+    random scores (jax.random.uniform(PRNGKey(0)), reproduced by
+    interop.jax_uniform): the bound was set on those draws, and other draws
+    miss it on some scenes in the reference too."""
+    x1, x2, mask, R_gt, t_gt = _plane_correspondences(cuda, seed)
+    cfg = RansacConfig(num_iterations=512, inlier_threshold=2e-3)
+    g = jax_uniform(cfg.seed, (cfg.num_iterations, mask.shape[0]))
+    res = estimate_relative_pose(x1, x2, mask, cfg, device=cuda, sample_scores=g)
+    assert rot_deg(res.R.cpu().numpy(), R_gt) <= ROT_BOUND_DEG
+    assert tdir_err_deg(res.t.cpu().numpy(), t_gt) <= TDIR_BOUND_DEG
+    assert int(res.num_inliers) >= 30

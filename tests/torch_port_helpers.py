@@ -19,6 +19,41 @@ def hamming(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return np.unpackbits((a ^ b).view(np.uint8), axis=-1).sum(-1)
 
 
+#: tests/test_two_view_bound.py's pose error bound on multi_plane_pair.
+ROT_BOUND_DEG, TDIR_BOUND_DEG = 1.5, 6.0
+
+
+def rot_deg(Ra, Rb) -> float:
+    """Angle of the rotation between two (3, 3) rotations, in degrees."""
+    Ra, Rb = np.asarray(Ra, np.float64), np.asarray(Rb, np.float64)
+    return float(np.degrees(np.arccos(np.clip((np.trace(Ra @ Rb.T) - 1) / 2, -1, 1))))
+
+
+def dir_deg(ta, tb) -> float:
+    """Angle between two directions, sign included, in degrees."""
+    ta, tb = np.asarray(ta, np.float64), np.asarray(tb, np.float64)
+    c = ta @ tb / (np.linalg.norm(ta) * np.linalg.norm(tb))
+    return float(np.degrees(np.arccos(np.clip(c, -1, 1))))
+
+
+def tdir_err_deg(t_est, t_gt) -> float:
+    """The reference bound's t-direction error (sign-blind, as
+    tests/test_two_view_bound.py measures it)."""
+    t_est, t_gt = np.asarray(t_est, np.float64), np.asarray(t_gt, np.float64)
+    return float(np.degrees(np.arccos(np.clip(abs(t_est @ t_gt), -1, 1))))
+
+
+def assert_same_pose(ref, got):
+    """Two two-view results (R, t, num_inliers; any array type) hold the same
+    pose: R within 0.05 deg, t-direction (sign included) within 0.2 deg,
+    inlier counts within max(1, 1 %)."""
+    host = lambda x: x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    assert rot_deg(host(ref.R), host(got.R)) <= 0.05
+    assert dir_deg(host(ref.t), host(got.t)) <= 0.2
+    n_r, n_g = int(ref.num_inliers), int(got.num_inliers)
+    assert abs(n_r - n_g) <= max(1, 0.01 * n_r), (n_r, n_g)
+
+
 def wrapped_angle_diff(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     d = np.abs(a - b)
     return np.minimum(d, 2 * np.pi - d)
