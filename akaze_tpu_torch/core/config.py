@@ -114,10 +114,12 @@ class RansacConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SfmConfig:
-    """Incremental SfM / bundle adjustment options.  The port reads only
-    `keyframe_min_tracked` (the video front end's keyframe rule) so far; the
-    other fields are kept so that a configuration converts field for field
-    between the two packages."""
+    """Incremental SfM / bundle adjustment options, every field read by the
+    port: the LM bundle adjustment (`ba_iterations`, `ba_obs_per_point`,
+    `lm_lambda_init`, `lm_lambda_max`, `huber_delta`; `sfm/ba.py`,
+    `sfm/incremental.py`), the video front end's keyframe rule
+    (`keyframe_min_tracked`) and the pose-graph edge weights
+    (`pgo_odometry_sigma`, `pgo_closure_sigma`)."""
 
     ba_iterations: int = 10
     ba_obs_per_point: int = 8

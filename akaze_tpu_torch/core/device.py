@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -13,3 +14,13 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("akaze_tpu_torch runs on CUDA by default and no GPU is available; "
                            "pass device='cpu' to run the plain PyTorch twins")
     return device
+
+
+def upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A numpy array as a tensor on `device`; to CUDA from pinned memory,
+    without a host sync (a blocking upload from pageable memory waits for
+    the stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

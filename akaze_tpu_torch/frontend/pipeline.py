@@ -25,6 +25,7 @@ from akaze_tpu_torch.frontend.describe import DescribeStatics, describe, describ
 from akaze_tpu_torch.frontend.detect import detect, detect_dense, find_candidates_oct
 from akaze_tpu_torch.frontend.scale_space import ScaleSpaceStatics
 from akaze_tpu_torch.kernels.fed import build_scale_space, build_scale_space_levels
+from akaze_tpu_torch.utils.profiling import check_no_nan
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -87,7 +88,10 @@ def extract_batch(frames, config: AkazeConfig | None = None, device="cuda") -> F
     config = config or AkazeConfig()
     if frames.ndim != 3:
         raise ValueError(f"extract_batch expects (B, H, W) frames, got shape {tuple(frames.shape)}")
-    return extract_batch_fn(_as_tensor(frames, resolve_device(device)), config)
+    feats = extract_batch_fn(_as_tensor(frames, resolve_device(device)), config)
+    kp = feats.keypoints
+    check_no_nan("extract_batch", kp.x, kp.y, kp.response, kp.size, kp.angle)
+    return feats
 
 
 def extract(img, config: AkazeConfig | None = None, device="cuda") -> Features:

@@ -31,6 +31,7 @@ import torch
 from akaze_tpu_torch.core.config import RansacConfig
 from akaze_tpu_torch.core.device import resolve_device
 from akaze_tpu_torch.frontend.detect import _topk_stable
+from akaze_tpu_torch.utils.profiling import check_no_nan, span
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
@@ -197,9 +198,10 @@ def _refit(E, inl, cnt, x1, x2, mask, config: RansacConfig):
     a = (x2[..., :, None] * x1[..., None, :]).reshape(*x1.shape[:-1], 9)  # (P, N, 9)
     for _ in range(3):
         w = inl.to(torch.float32)
-        r = torch.linalg.qr(a[:, None] * w[..., None], mode="r").R  # (P, M, 9, 9)
-        e = torch.linalg.svd(r).Vh[..., -1, :].reshape(P, M, 3, 3)
-        u, _, vt = torch.linalg.svd(e)
+        with span("linalg", a.device):
+            r = torch.linalg.qr(a[:, None] * w[..., None], mode="r").R  # (P, M, 9, 9)
+            e = torch.linalg.svd(r).Vh[..., -1, :].reshape(P, M, 3, 3)
+            u, _, vt = torch.linalg.svd(e)
         E_new = u[..., :, :2] @ vt[..., :2, :]  # u diag(1, 1, 0) vt
         inl_new = _inliers(E_new, x1, x2, mask, config)
         cnt_new = inl_new.sum(-1, dtype=torch.int32)
@@ -263,10 +265,11 @@ def _recover_pose(E: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor, inliers: 
     with the most inliers in front of both cameras (the first on ties).
     x1, x2 (..., N, 3) and inliers (..., N) broadcast against E's leading
     axes.  Returns (R, t, cheirality count)."""
-    u, _, vt = torch.linalg.svd(E)
-    # Proper rotations: flip the sign of a factor whose determinant is < 0.
-    u = u * torch.sign(torch.linalg.det(u))[..., None, None]
-    vt = vt * torch.sign(torch.linalg.det(vt))[..., None, None]
+    with span("linalg", E.device):
+        u, _, vt = torch.linalg.svd(E)
+        # Proper rotations: flip the sign of a factor whose determinant is < 0.
+        u = u * torch.sign(torch.linalg.det(u))[..., None, None]
+        vt = vt * torch.sign(torch.linalg.det(vt))[..., None, None]
     w = _w_matrix(E.device, E.dtype)
     r1 = u @ w @ vt
     r2 = u @ w.T @ vt
@@ -318,7 +321,9 @@ def estimate_relative_pose(x1, x2, mask, config: RansacConfig | None = None, gen
     config = config or RansacConfig()
     device = resolve_device(device)
     x1, x2, scores = (None if x is None else _on(x, device, torch.float32) for x in (x1, x2, sample_scores))
-    return estimate_relative_pose_fn(x1, x2, _on(mask, device, torch.bool), config, generator, scores)
+    res = estimate_relative_pose_fn(x1, x2, _on(mask, device, torch.bool), config, generator, scores)
+    check_no_nan("estimate_relative_pose", res.E, res.R, res.t)
+    return res
 
 
 def _on(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:

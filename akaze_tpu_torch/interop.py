@@ -1,12 +1,17 @@
 """State that crosses between the JAX package and the port.
 
-The system has no learned weights: what crosses is the configuration and
-the extracted `Features`.  Both directions go through plain dicts and numpy
-arrays, so this module imports nothing of the JAX package:
+The system has no learned weights: what crosses is the configuration, the
+extracted `Features` and the SfM state (a bundle-adjustment problem, a map
+checkpoint, loop closures).  Both directions go through plain dicts and
+numpy arrays, so this module imports nothing of the JAX package:
 
     cfg = config_from_fields(dataclasses.asdict(jax_config))  # any of the four configs
     feats = features_from_numpy(arrays, device="cuda")
     arrays = features_to_numpy(feats)   # descriptors as a uint32 view
+    problem = ba_problem_from_numpy({f: np.asarray(getattr(jax_problem, f)) for f in BA_FIELDS})
+    ckpt = checkpoint_from_fields(dataclasses.asdict(jax_checkpoint))
+    closures = closures_from_fields([dataclasses.asdict(c) for c in jax_closures])
+    # and back: jax_sfm.SfmCheckpoint(**dataclasses.asdict(ckpt)), jax_sfm.Closure(**dataclasses.asdict(c))
     scores = jax_uniform(0, (512, 1024))  # = jax.random.uniform(PRNGKey(0), ...)
 
 `jax_uniform` lets a machine without JAX feed the port the very random
@@ -23,6 +28,9 @@ import torch
 from akaze_tpu_torch.core.config import AkazeConfig, Diffusivity, MatchConfig, RansacConfig, SfmConfig
 from akaze_tpu_torch.core.device import resolve_device
 from akaze_tpu_torch.core.types import Features, Keypoints
+from akaze_tpu_torch.sfm.ba import BAProblem
+from akaze_tpu_torch.sfm.checkpoint import SfmCheckpoint
+from akaze_tpu_torch.sfm.loop_closure import Closure
 
 _KEYPOINT_FIELDS = tuple(f.name for f in dataclasses.fields(Keypoints))
 _KEYPOINT_DTYPES = {
@@ -64,6 +72,45 @@ def features_from_numpy(arrays: dict, device="cuda") -> Features:
     }
     desc = np.array(arrays["descriptors"]).view(np.int32)
     return Features(keypoints=Keypoints(**kp), descriptors=torch.from_numpy(desc).to(device))
+
+
+#: The fields of a bundle-adjustment problem, in both packages.
+BA_FIELDS = tuple(f.name for f in dataclasses.fields(BAProblem))
+_BA_DTYPES = {"poses": np.float32, "points": np.float32, "obs_cam": np.int64, "obs_uv": np.float32,
+              "obs_valid": np.bool_, "fixed": np.bool_}
+
+
+def ba_problem_from_numpy(arrays: dict, device="cuda") -> BAProblem:
+    """A `BAProblem` on `device` (the card unless the caller asks for the
+    CPU) from numpy arrays of its six fields (e.g. a JAX problem's)."""
+    device = resolve_device(device)
+    return BAProblem(**{f: torch.from_numpy(np.array(arrays[f], _BA_DTYPES[f])).to(device) for f in BA_FIELDS})
+
+
+def ba_problem_to_numpy(problem: BAProblem) -> dict:
+    """The six fields of a problem as numpy arrays (obs_cam as int32, the
+    JAX package's dtype)."""
+    out = {f: getattr(problem, f).cpu().numpy() for f in BA_FIELDS}
+    out["obs_cam"] = out["obs_cam"].astype(np.int32)
+    return out
+
+
+def checkpoint_from_fields(fields: dict) -> SfmCheckpoint:
+    """The port's `SfmCheckpoint` from the fields of either package's (e.g.
+    `dataclasses.asdict`); the same file format serves both, and
+    `dataclasses.asdict` of the port's builds either package's."""
+    return SfmCheckpoint(
+        poses=np.array(fields["poses"], np.float32), points=np.array(fields["points"], np.float32),
+        track_point={int(k): int(v) for k, v in fields["track_point"].items()},
+        keyframe_frames=[int(x) for x in fields["keyframe_frames"]], next_keyframe=int(fields["next_keyframe"]),
+    )
+
+
+def closures_from_fields(items) -> list:
+    """The port's `Closure`s from the fields of either package's
+    (`dataclasses.asdict` of the port's builds either package's)."""
+    return [Closure(i=int(c["i"]), j=int(c["j"]), matches=np.array(c["matches"], np.int64).reshape(-1, 2),
+                    rel6=np.array(c["rel6"], np.float32), num_inliers=int(c["num_inliers"])) for c in items]
 
 
 def _threefry2x32(k1, k2, x1, x2):

@@ -93,16 +93,38 @@ def octave_groups(statics) -> tuple:
 # ------------------------------------------------------------------ kernel 1
 
 
+def ieee_sqrt(s: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 root of a float32 tensor s >= 0 (the
+    IEEE `sqrtf`), on any device and whatever torch's CPU root does: a
+    float64 root rounded to float32, then moved to the float32 neighbour
+    whose rounding interval holds sqrt(s).  The test is exact: the midpoint
+    of two adjacent float32 values and its square are exact in float64, and
+    sqrt(s) never lies on a midpoint.  torch's float32 CPU root is 1 ULP off
+    on ~0.7 % of pixels, and was seen up to ~4,000 ULP off on the first
+    call of a fresh 8-thread process."""
+    sd = s.double()
+    return round_root(sd, torch.sqrt(sd).float())
+
+
+def round_root(sd: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 root of float64 sd (a float32 value)
+    from a float32 root r at most 1 ULP off."""
+    up = torch.nextafter(r, torch.full_like(r, float("inf")))
+    down = torch.nextafter(r, torch.zeros_like(r))
+    rd = r.double()
+    hi = (rd + up.double()) * 0.5
+    lo = (rd + down.double()) * 0.5
+    return torch.where(sd > hi * hi, up, torch.where(sd < lo * lo, down, r))
+
+
 def base_stage_plain(imgs: torch.Tensor, sigma0: float):
-    """(B, H, W) -> (seed = G_sigma0 * img, modg = |Scharr grad(G_1 * img)|).
-    The root is taken in float64 and rounded to float32, which is the IEEE
-    float32 root (kernel 1's `sqrtf`): torch's float32 CPU root is not
-    always correctly rounded."""
+    """(B, H, W) -> (seed = G_sigma0 * img, modg = |Scharr grad(G_1 * img)|),
+    the root IEEE-rounded as kernel 1's `sqrtf` (`ieee_sqrt`)."""
     seed = gaussian_blur(imgs, sigma0)
     sm = gaussian_blur(imgs, 1.0)
     gx = scharr(sm, 1, 0, 1)
     gy = scharr(sm, 0, 1, 1)
-    return seed, torch.sqrt((gx * gx + gy * gy).double()).float()
+    return seed, ieee_sqrt(gx * gx + gy * gy)
 
 
 def _check_planes(t: torch.Tensor, what: str) -> None:

@@ -30,6 +30,7 @@ from akaze_tpu_torch.core.device import resolve_device
 from akaze_tpu_torch.core.types import Features, Keypoints
 from akaze_tpu_torch.frontend.pipeline import _as_tensor, extract_batch_fn
 from akaze_tpu_torch.matching.hamming import Matches, match_fn
+from akaze_tpu_torch.utils.profiling import check_no_nan
 
 
 @dataclasses.dataclass
@@ -128,4 +129,7 @@ def process_video(frames, config: AkazeConfig | None = None, mconfig: MatchConfi
     # would hide scene cuts from the keyframe rule.
     mconfig = mconfig or MatchConfig(max_distance=120)
     sconfig = sconfig or SfmConfig()
-    return process_video_fn(_as_tensor(frames, resolve_device(device)), config, mconfig, sconfig, batch)
+    res = process_video_fn(_as_tensor(frames, resolve_device(device)), config, mconfig, sconfig, batch)
+    kp = res.features.keypoints
+    check_no_nan("process_video", kp.x, kp.y, kp.response, kp.size, kp.angle)
+    return res

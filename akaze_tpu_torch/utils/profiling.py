@@ -5,6 +5,18 @@
 (`torch.cuda.synchronize` on CUDA), a `torch.profiler.record_function`
 range and, on CUDA, an NVTX range, so a stage shows by name in a
 torch.profiler trace and in an NVTX timeline.
+
+`span(name, device)` marks a region of a device path the same way without
+a sync; while a `SpanRecorder` is active (`record_spans`), each span also
+records a pair of CUDA events on the current stream, so a caller can read
+the device time of every span after one synchronization.  The SfM stack
+marks its window super-steps (`sfm.window`), bundle adjustments (`sfm.ba`),
+pose graphs (`sfm.pose_graph`) and `torch.linalg` calls (`linalg`).
+
+`enable_debug_checks()` is the NaN switch of the entry points (extract,
+video, two-view, SfM): while it is on, each checks its outputs and raises
+`FloatingPointError` on a NaN (a host read per check); while it is off,
+`check_no_nan` returns at once and reads nothing.
 """
 
 from __future__ import annotations
@@ -61,6 +73,60 @@ class StageTimer:
         return dict(self.times)
 
 
+class SpanRecorder:
+    """The CUDA-event pairs of the spans run while it is active
+    (`record_spans`), by name; `on_enter(name)`, if given, is called as each
+    span opens (on any device).  Read `ms` after synchronizing the device."""
+
+    def __init__(self, on_enter=None):
+        self.events: dict[str, list] = {}
+        self.on_enter = on_enter
+
+    def count(self, name: str) -> int:
+        return len(self.events.get(name, ()))
+
+    def ms(self, name: str) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.events.get(name, ()))
+
+
+_recorder: dict[str, SpanRecorder | None] = {"active": None}
+
+
+@contextlib.contextmanager
+def record_spans(recorder: SpanRecorder) -> Iterator[SpanRecorder]:
+    """Make `recorder` receive the spans run inside the block."""
+    previous, _recorder["active"] = _recorder["active"], recorder
+    try:
+        yield recorder
+    finally:
+        _recorder["active"] = previous
+
+
+@contextlib.contextmanager
+def span(name: str, device: torch.device) -> Iterator[None]:
+    """A named region without a host sync: a `record_function` range, an
+    NVTX range on CUDA, and CUDA events while a recorder is active."""
+    rec = _recorder["active"]
+    cuda = device.type == "cuda"
+    if rec is not None and rec.on_enter is not None:
+        rec.on_enter(name)
+    events = None
+    if cuda:
+        torch.cuda.nvtx.range_push(name)
+        if rec is not None:
+            events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            events[0].record()
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        if cuda:
+            if events is not None:
+                events[1].record()
+                rec.events.setdefault(name, []).append(events)
+            torch.cuda.nvtx.range_pop()
+
+
 class MetricsLogger:
     """Structured JSON-lines metrics (keypoints per frame, matches, frames/s)."""
 
@@ -88,3 +154,25 @@ def profiler_trace(logdir: str | None) -> Iterator[None]:
     with torch.profiler.profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+_debug_checks = {"on": False}
+
+
+def enable_debug_checks(enabled: bool = True) -> None:
+    """Turn the entry points' NaN checks on (or off with enabled=False)."""
+    _debug_checks["on"] = bool(enabled)
+
+
+def debug_checks_enabled() -> bool:
+    return _debug_checks["on"]
+
+
+def check_no_nan(what: str, *tensors) -> None:
+    """While debug checks are on, raise FloatingPointError if a floating
+    tensor among `tensors` holds a NaN; otherwise do nothing (no host sync)."""
+    if not _debug_checks["on"]:
+        return
+    for i, t in enumerate(tensors):
+        if isinstance(t, torch.Tensor) and t.is_floating_point() and bool(torch.isnan(t).any()):
+            raise FloatingPointError(f"{what}: NaN in output {i}")

@@ -1,4 +1,4 @@
-"""The port's CLIs (`python -m akaze_tpu_torch.cli.{extract,match,sequence}`)
+"""The port's CLIs (`python -m akaze_tpu_torch.cli.{extract,match,sequence,sfm}`)
 with --device cpu, mirroring tests/test_cli.py at its sizes and arguments;
 their JSON and summary keys against the JAX CLIs' on the same inputs;
 feature files that load in either package with equal arrays; and the
@@ -15,11 +15,14 @@ import torch
 from akaze_tpu.cli import imgio as jax_imgio
 from akaze_tpu.cli import match as jax_cli_match
 from akaze_tpu.cli import sequence as jax_cli_sequence
+from akaze_tpu.cli import sfm as jax_cli_sfm
+from akaze_tpu.sfm.checkpoint import load_checkpoint as jax_load_checkpoint
 from akaze_tpu.core import types as jax_types
 from akaze_tpu_torch import interop
 from akaze_tpu_torch.cli import extract as cli_extract
 from akaze_tpu_torch.cli import match as cli_match
 from akaze_tpu_torch.cli import sequence as cli_sequence
+from akaze_tpu_torch.cli import sfm as cli_sfm
 from akaze_tpu_torch.cli.imgio import load_features, load_gray, save_features
 from akaze_tpu_torch.core.config import AkazeConfig
 from akaze_tpu_torch.frontend.pipeline import extract
@@ -100,6 +103,34 @@ def test_cli_sequence_and_keys_equal_jax(tmp_path):
             assert z[k].shape == zr[k].shape and z[k].dtype == zr[k].dtype, k
 
 
+def test_cli_sfm_and_keys_equal_jax(tmp_path):
+    """tests/test_cli.py's SfM smoke run (a planar pan, so structure and
+    outputs are checked, not the trajectory): the same JSON keys and track
+    count as the JAX CLI, and a checkpoint the JAX package loads."""
+    fp = tmp_path / "frames.npy"
+    np.save(fp, video_sequence(5, 96, 128, seed=5))
+    args = [str(fp), "--batch", "5", "--ba-iterations", "4"]
+    out, ckpt = tmp_path / "sfm.json", tmp_path / "map.npz"
+    assert cli_sfm.main([*args, "-o", str(out), "--checkpoint", str(ckpt), *_CPU]) == 0
+    s = json.loads(out.read_text())
+    assert s["num_frames"] == 5 and len(s["poses"]) == 5 and s["num_tracks"] > 10
+    assert np.isfinite(np.asarray(s["camera_centers"])).all()
+    back = jax_load_checkpoint(ckpt)
+    assert back.poses.shape == (5, 6) and back.next_keyframe == 5
+    ref_out = tmp_path / "sfm_jax.json"
+    assert jax_cli_sfm.main([*args, "-o", str(ref_out), *_FAST]) == 0
+    ref = json.loads(ref_out.read_text())
+    assert sorted(s) == sorted(ref)
+    assert s["num_tracks"] == ref["num_tracks"] and s["num_points"] == ref["num_points"]
+
+
+def test_cli_sfm_refuses_mesh(tmp_path, capsys):
+    with pytest.raises(SystemExit) as e:
+        cli_sfm.main([str(tmp_path / "none.npy"), "-o", str(tmp_path / "o.json"), "--mesh", "4", *_CPU])
+    assert e.value.code == 2
+    assert "parallel paths" in capsys.readouterr().err
+
+
 def test_cli_pgm_end_to_end(tmp_path):
     """The image-file path: a PGM pair through extract -> match --pose --viz;
     the PGM route gives the same features as the same uint8 pixels as .npy."""
@@ -175,6 +206,14 @@ def test_clis_default_to_the_card(image_files, tmp_path):
     np.save(tmp_path / "fr.npy", video_sequence(2, 96, 128, seed=5))
     with pytest.raises(RuntimeError, match="CUDA"):
         cli_sequence.main([str(tmp_path / "fr.npy"), "-o", str(tmp_path / "s.json"), *_FAST])
+
+
+def test_cli_sfm_defaults_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works")
+    np.save(tmp_path / "fr.npy", video_sequence(2, 96, 128, seed=5))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_sfm.main([str(tmp_path / "fr.npy"), "-o", str(tmp_path / "s.json"), *_FAST])
 
 
 def test_profiling_utils(tmp_path):

@@ -149,3 +149,37 @@ MATCH_CASES = [
     (130, 263, "invalid_a"),
     (70, 140, "invalid_b"),
 ]
+
+
+def trajectory_problem(K=72, P=320, Q=4, pose_err=0.01, pt_err=0.05, seed=5):
+    """tests/test_ba.py's `_long_trajectory_problem` without observation
+    noise, in numpy: cameras slide along x with a slow yaw, each point in
+    front of the middle of its Q consecutive cameras, poses 0 and 1 fixed.
+    Returns (the problem's fields as numpy arrays, the true poses)."""
+    from akaze_tpu_torch.utils.synthetic import _rotvec_to_matrix_np
+
+    rng = np.random.default_rng(seed)
+    poses = np.zeros((K, 6))
+    poses[:, 1] = 0.003 * np.arange(K)
+    poses[:, 3] = -0.15 * np.arange(K)
+    poses[:, 4] = 0.01 * np.sin(0.1 * np.arange(K))
+    rots = [_rotvec_to_matrix_np(p[:3]) for p in poses]
+    starts = rng.integers(0, K - Q + 1, P)
+    obs_cam = (starts[:, None] + np.arange(Q)[None, :]).astype(np.int32)
+    pts = np.zeros((P, 3))
+    obs_uv = np.zeros((P, Q, 2), np.float32)
+    for p in range(P):
+        mid = starts[p] + Q // 2
+        local = np.array([rng.uniform(-2, 2), rng.uniform(-1.5, 1.5), rng.uniform(6, 14)])
+        pts[p] = rots[mid].T @ (local - poses[mid, 3:])
+        for q in range(Q):
+            xc = rots[obs_cam[p, q]] @ pts[p] + poses[obs_cam[p, q], 3:]
+            obs_uv[p, q] = xc[:2] / xc[2]
+    fixed = np.zeros(K, bool)
+    fixed[:2] = True
+    init_poses = poses.copy()
+    init_poses[2:] += rng.normal(0, pose_err, (K - 2, 6))
+    init_pts = pts + rng.normal(0, pt_err, pts.shape)
+    fields = dict(poses=init_poses.astype(np.float32), points=init_pts.astype(np.float32), obs_cam=obs_cam,
+                  obs_uv=obs_uv, obs_valid=np.ones((P, Q), bool), fixed=fixed)
+    return fields, poses
