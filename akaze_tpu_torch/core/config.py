@@ -1,6 +1,6 @@
 """Configuration dataclasses of the PyTorch port (own copy of the JAX
 package's `akaze_tpu/core/config.py`: `AkazeConfig`, `MatchConfig`,
-`RansacConfig` and `SfmConfig`, same fields and defaults).
+`RansacConfig`, `SfmConfig` and `MeshConfig`, same fields and defaults).
 
 The TPU execution knobs (`pallas_octaves`, `patch_backend`,
 `describe_group`, `describe_loop`, `deep_octave_frames`,
@@ -131,3 +131,15 @@ class SfmConfig:
     keyframe_min_tracked: float = 0.6
     pgo_odometry_sigma: float = 5e-5
     pgo_closure_sigma: float = 2e-3
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Rank layout of the parallel paths (`akaze_tpu_torch/parallel/`)."""
+
+    data: int = 1  # frames / point blocks sharded along this axis
+    spatial: int = 1  # image rows sharded along this axis (FED halo exchange)
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.spatial

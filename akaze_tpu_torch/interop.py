@@ -5,7 +5,7 @@ extracted `Features` and the SfM state (a bundle-adjustment problem, a map
 checkpoint, loop closures).  Both directions go through plain dicts and
 numpy arrays, so this module imports nothing of the JAX package:
 
-    cfg = config_from_fields(dataclasses.asdict(jax_config))  # any of the four configs
+    cfg = config_from_fields(dataclasses.asdict(jax_config))  # any of the five configs
     feats = features_from_numpy(arrays, device="cuda")
     arrays = features_to_numpy(feats)   # descriptors as a uint32 view
     problem = ba_problem_from_numpy({f: np.asarray(getattr(jax_problem, f)) for f in BA_FIELDS})
@@ -13,6 +13,8 @@ numpy arrays, so this module imports nothing of the JAX package:
     closures = closures_from_fields([dataclasses.asdict(c) for c in jax_closures])
     # and back: jax_sfm.SfmCheckpoint(**dataclasses.asdict(ckpt)), jax_sfm.Closure(**dataclasses.asdict(c))
     scores = jax_uniform(0, (512, 1024))  # = jax.random.uniform(PRNGKey(0), ...)
+    scores = jax_uniform(0, (64, 128), fold_in=7)  # ... (fold_in(PRNGKey(0), 7), ...)
+    shards = ba_problem_shards(problem, 2)  # the point blocks of bundle_adjust_sharded
 
 `jax_uniform` lets a machine without JAX feed the port the very random
 scores of a JAX experiment (`estimate_relative_pose_fn(..., sample_scores=)`).
@@ -25,10 +27,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from akaze_tpu_torch.core.config import AkazeConfig, Diffusivity, MatchConfig, RansacConfig, SfmConfig
+from akaze_tpu_torch.core.config import AkazeConfig, Diffusivity, MatchConfig, MeshConfig, RansacConfig, SfmConfig
 from akaze_tpu_torch.core.device import resolve_device
 from akaze_tpu_torch.core.types import Features, Keypoints
-from akaze_tpu_torch.sfm.ba import BAProblem
+from akaze_tpu_torch.sfm.ba import POINT_FIELDS, BAProblem
 from akaze_tpu_torch.sfm.checkpoint import SfmCheckpoint
 from akaze_tpu_torch.sfm.loop_closure import Closure
 
@@ -40,12 +42,12 @@ _KEYPOINT_DTYPES = {
 
 
 def config_from_fields(fields: dict):
-    """An AkazeConfig, MatchConfig, RansacConfig or SfmConfig from the
-    fields of either package's config (e.g. `dataclasses.asdict`), told
-    apart by their field names (no two of the four share one).  The
+    """An AkazeConfig, MatchConfig, RansacConfig, SfmConfig or MeshConfig
+    from the fields of either package's config (e.g. `dataclasses.asdict`),
+    told apart by their field names (no two of the five share one).  The
     diffusivity may be an enum member of either package or its string
     value."""
-    for cls in (MatchConfig, RansacConfig, SfmConfig):
+    for cls in (MatchConfig, RansacConfig, SfmConfig, MeshConfig):
         if set(fields) <= {f.name for f in dataclasses.fields(cls)}:
             return cls(**fields)
     fields = dict(fields)
@@ -95,6 +97,25 @@ def ba_problem_to_numpy(problem: BAProblem) -> dict:
     return out
 
 
+def ba_problem_shards(problem: BAProblem, n: int) -> list:
+    """`problem` cut into n contiguous blocks of its points and observation
+    rows, each with the whole problem's poses and fixed flags: shard r is
+    what rank r of an n-rank `bundle_adjust_sharded` takes.  The point count
+    must be a multiple of n."""
+    P = problem.points.shape[0]
+    if P % n:
+        raise ValueError(f"{P} points are not divisible into {n} shards")
+    per = P // n
+    return [problem.rows(slice(r * per, (r + 1) * per)) for r in range(n)]
+
+
+def ba_problem_from_shards(shards) -> BAProblem:
+    """The whole problem from its shards (`ba_problem_shards`' inverse):
+    points and observation rows concatenated in order, the poses and fixed
+    flags of the first shard."""
+    return shards[0].replace(**{f: torch.cat([getattr(s, f) for s in shards]) for f in POINT_FIELDS})
+
+
 def checkpoint_from_fields(fields: dict) -> SfmCheckpoint:
     """The port's `SfmCheckpoint` from the fields of either package's (e.g.
     `dataclasses.asdict`); the same file format serves both, and
@@ -127,17 +148,25 @@ def _threefry2x32(k1, k2, x1, x2):
     return x
 
 
-def jax_uniform(seed: int, shape) -> np.ndarray:
+def jax_uniform(seed: int, shape, fold_in: int | None = None) -> np.ndarray:
     """float32 numpy array equal to `jax.random.uniform(jax.random.PRNGKey(seed),
     shape)` under JAX's default generator (threefry2x32, partitionable
-    counters): element i is Threefry(key, (i >> 32, i & 0xffffffff)), the
-    two output words xored, its top 23 bits as the mantissa of a float in
-    [1, 2), minus 1.  Seeds are 0 <= seed < 2**32 (JAX's 32-bit keys)."""
-    if not 0 <= seed < 2**32:
-        raise ValueError(f"jax_uniform takes 0 <= seed < 2**32, got {seed}")
+    counters), or with `fold_in` to `jax.random.uniform(jax.random.fold_in(
+    jax.random.PRNGKey(seed), fold_in), shape)` (the pipeline's per-frame
+    keys).  PRNGKey(seed) is the word pair (0, seed); fold_in(key, d) is
+    Threefry(key, (0, d)); element i is Threefry(key, (i >> 32, i &
+    0xffffffff)), the two output words xored, its top 23 bits as the
+    mantissa of a float in [1, 2), minus 1.  Seeds and folded values are
+    0 <= x < 2**32 (JAX's 32-bit keys)."""
+    for name, v in (("seed", seed), ("fold_in", fold_in)):
+        if v is not None and not 0 <= v < 2**32:
+            raise ValueError(f"jax_uniform takes 0 <= {name} < 2**32, got {v}")
     idx = np.arange(int(np.prod(shape)), dtype=np.uint64)
     hi, lo = (idx >> np.uint64(32)).astype(np.uint32), (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     with np.errstate(over="ignore"):
-        b1, b2 = _threefry2x32(np.uint32(0), np.uint32(seed), hi, lo)
+        key = (np.uint32(0), np.uint32(seed))
+        if fold_in is not None:
+            key = tuple(w[0] for w in _threefry2x32(*key, np.zeros(1, np.uint32), np.full(1, fold_in, np.uint32)))
+        b1, b2 = _threefry2x32(*key, hi, lo)
     bits = ((b1 ^ b2) >> np.uint32(9)) | np.uint32(0x3F800000)
     return np.maximum(np.float32(0.0), bits.view(np.float32) - np.float32(1.0)).reshape(shape)

@@ -18,6 +18,12 @@ complement onto the poses (counterpart of the JAX package's
     block-Jacobi-preconditioned CG with 120 fixed iterations past that.
   * The LM loop is branchless: a fixed iteration count, accept/reject with
     `torch.where`, no value read back to the host.
+  * Distributed BA (`bundle_adjust_sharded`): the points and their
+    observations are split over the ranks of a mesh axis and the poses are
+    replicated.  Each rank builds its partial S, rhs and camera blocks U
+    and its partial costs; these are summed over the ranks before the
+    damping and gauge fixing, in rank order, so every rank solves the same
+    pose system to the same bits.  Point updates stay on their rank.
 
 `bundle_adjust` runs on the device of the problem's tensors (see
 `interop.ba_problem_from_numpy` to place one).  Importing this module pins
@@ -63,6 +69,15 @@ class BAProblem:
 
     def replace(self, **changes) -> "BAProblem":
         return dataclasses.replace(self, **changes)
+
+    def rows(self, sl: slice) -> "BAProblem":
+        """The problem cut to the point rows `sl` (points and their
+        observations), with every pose."""
+        return self.replace(**{f: getattr(self, f)[sl] for f in POINT_FIELDS})
+
+
+#: The fields indexed by point row; the other two (poses, fixed) by camera.
+POINT_FIELDS = ("points", "obs_cam", "obs_uv", "obs_valid")
 
 
 def project(poses: torch.Tensor, points: torch.Tensor, uv: torch.Tensor, jacobians: bool = True):
@@ -138,9 +153,11 @@ def _add_diagonal_blocks(s: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
     return s
 
 
-def _schur_system(problem: BAProblem, lam: torch.Tensor, config: SfmConfig):
+def _schur_system(problem: BAProblem, lam: torch.Tensor, config: SfmConfig, reduce=None):
     """The reduced pose system (S (K, K, 6, 6), rhs (K, 6)) and the point
-    side factors (vinv, w_blk, g_p) for the back-substitution."""
+    side factors (vinv, w_blk, g_p) for the back-substitution.  With
+    `reduce` (a sum over the ranks that hold the other points), the partial
+    S, rhs and U are summed before the damping and gauge fixing."""
     K = problem.poses.shape[0]
     P, Q = problem.obs_cam.shape
     r, jc, jp = _linearize(problem, config.huber_delta)
@@ -174,6 +191,10 @@ def _schur_system(problem: BAProblem, lam: torch.Tensor, config: SfmConfig):
 
     y_gp = torch.einsum("pqik,pk->pqi", y, g_p)
     rhs = -(g_c - torch.einsum("pqk,pqi->ki", onehot, y_gp))  # (K, 6)
+    if reduce is not None:
+        parts = (s, rhs, u)
+        total = reduce(torch.cat([x.reshape(-1) for x in parts])).split([x.numel() for x in parts])
+        s, rhs, u = (t.reshape(x.shape) for t, x in zip(total, parts))
 
     # Marquardt damping and gauge fixing on the pose system.
     damp = lam * torch.clamp(torch.diagonal(u, dim1=-2, dim2=-1).mean(-1), min=1e-8)
@@ -239,13 +260,14 @@ def _apply_update(problem: BAProblem, s, rhs, vinv, w_blk, g_p) -> BAProblem:
     return problem.replace(poses=problem.poses + dc, points=problem.points + dp)
 
 
-def _lm_loop(problem: BAProblem, config: SfmConfig) -> BAProblem:
+def _lm_loop(problem: BAProblem, config: SfmConfig, reduce=None) -> BAProblem:
+    total = (lambda x: x) if reduce is None else reduce
     lam = torch.full((), config.lm_lambda_init, dtype=torch.float32, device=problem.poses.device)
-    cost = _cost(problem, config.huber_delta)
+    cost = total(_cost(problem, config.huber_delta))
     for _ in range(config.ba_iterations):
-        s, rhs, vinv, w_blk, g_p = _schur_system(problem, lam, config)
+        s, rhs, vinv, w_blk, g_p = _schur_system(problem, lam, config, reduce)
         cand = _apply_update(problem, s, rhs, vinv, w_blk, g_p)
-        new_cost = _cost(cand, config.huber_delta)
+        new_cost = total(_cost(cand, config.huber_delta))
         accept = new_cost < cost
         problem = problem.replace(poses=torch.where(accept, cand.poses, problem.poses),
                                   points=torch.where(accept, cand.points, problem.points))
@@ -259,6 +281,21 @@ def bundle_adjust(problem: BAProblem, config: SfmConfig) -> BAProblem:
     problem's tensors; float32 throughout."""
     out = _lm_loop(problem.replace(obs_cam=problem.obs_cam.long()), config)
     check_no_nan("bundle_adjust", out.poses, out.points)
+    return out.replace(obs_cam=problem.obs_cam)
+
+
+def bundle_adjust_sharded(problem: BAProblem, config: SfmConfig, mesh, axis: str = "data") -> BAProblem:
+    """Distributed BA over the ranks of `mesh`'s `axis` (every rank calls it):
+    `problem` is this rank's shard, its points and observation rows (a
+    contiguous block of the whole problem's, e.g. from
+    `interop.ba_problem_shards`) with the whole problem's poses and fixed
+    flags.  Returns this rank's shard optimized; the poses come out the same
+    on every rank.  With one rank it equals `bundle_adjust` bit for bit."""
+    from akaze_tpu_torch.parallel.collectives import all_sum
+
+    out = _lm_loop(problem.replace(obs_cam=problem.obs_cam.long()), config,
+                   reduce=lambda x: all_sum(x, mesh, axis))
+    check_no_nan("bundle_adjust_sharded", out.poses, out.points)
     return out.replace(obs_cam=problem.obs_cam)
 
 

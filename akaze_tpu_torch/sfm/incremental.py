@@ -35,7 +35,8 @@ import torch
 from akaze_tpu_torch.core.config import RansacConfig, SfmConfig
 from akaze_tpu_torch.core.device import resolve_device, upload
 from akaze_tpu_torch.geometry.twoview import estimate_relative_pose, triangulate
-from akaze_tpu_torch.sfm.ba import BAProblem, bundle_adjust, project
+from akaze_tpu_torch.parallel.collectives import Mesh, all_gather, rank_rows
+from akaze_tpu_torch.sfm.ba import BAProblem, bundle_adjust, bundle_adjust_sharded, project
 from akaze_tpu_torch.sfm.rotations import matrix_to_rotvec, rotvec_to_matrix
 from akaze_tpu_torch.utils.profiling import check_no_nan, span
 
@@ -288,12 +289,14 @@ def run_incremental(
     `rconfig.seed` for each candidate pair, as the JAX package keys each with
     `PRNGKey(rconfig.seed)`.  `interop.jax_uniform` gives JAX's draws.
 
-    mesh: the sharded BA of the parallel paths, not ported yet; anything
-    but None raises."""
-    if mesh is not None:
-        raise NotImplementedError("run_incremental(mesh=...): the sharded bundle adjustment belongs to the "
-                                  "parallel paths of akaze_tpu_torch, which are not ported yet")
-    device = resolve_device(device)
+    mesh: a `parallel` mesh with a `data` axis (every rank of it calls
+    run_incremental with the same arguments): each BA's points are split
+    over the axis (`bundle_adjust_sharded`) and gathered back, so every rank
+    holds the whole map and runs the same host schedule; the run is on the
+    mesh's device, and only the mesh's rank 0 writes checkpoints."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"run_incremental(mesh=...) takes a parallel.collectives.Mesh, got {type(mesh).__name__}")
+    device = resolve_device(device) if mesh is None else mesh.device
     sconfig = sconfig or SfmConfig()
     rconfig = rconfig or RansacConfig()
     K = num_frames
@@ -470,7 +473,7 @@ def run_incremental(
         if next_row >= 8:
             with span("sfm.ba", device):
                 poses, points[:next_row] = _run_ba(poses, points[:next_row], observations, track_point, k_end + 1,
-                                                   sconfig)
+                                                   sconfig, mesh)
             # Pose-graph optimization when this window reached a closure's
             # later keyframe; BA then re-polishes from the corrected poses.
             if any(k <= cj <= k_end for _, cj, _ in closure_list):
@@ -479,8 +482,8 @@ def run_incremental(
                 if applied:
                     with span("sfm.ba", device):
                         poses, points[:next_row] = _run_ba(poses, points[:next_row], observations, track_point,
-                                                           k_end + 1, sconfig)
-            if checkpoint_path is not None:
+                                                           k_end + 1, sconfig, mesh)
+            if checkpoint_path is not None and (mesh is None or mesh.rank == 0):
                 from akaze_tpu_torch.sfm.checkpoint import SfmCheckpoint, save_checkpoint
 
                 save_checkpoint(checkpoint_path, SfmCheckpoint(
@@ -498,18 +501,23 @@ def run_incremental(
 
 
 def _run_ba(poses: torch.Tensor, points: torch.Tensor, observations, track_point, num_kf: int,
-            sconfig: SfmConfig):
+            sconfig: SfmConfig, mesh: Mesh | None = None):
     """Pack the current map into a fixed-shape BAProblem on the poses'
     device and optimize; returns (poses, points) on the device.
 
     Rows without a valid track get no observations and stay where they
     are.  Each point keeps up to `ba_obs_per_point` observations spread
     evenly over its track (its first and last keyframe included), and the
-    point count is padded to the next power of two."""
+    point count is padded to the next power of two, rounded up to a multiple
+    of the mesh's `data` size; with a mesh each rank optimizes its block of
+    rows and the blocks are gathered back on every rank."""
     device = poses.device
     P = points.shape[0]
     Q = max(2, min(sconfig.ba_obs_per_point, num_kf))
     bucket = max(64, 1 << (P - 1).bit_length())
+    if mesh is not None:
+        n = mesh.axis_size("data")
+        bucket = -(-bucket // n) * n
     obs_cam = np.zeros((bucket, Q), np.int64)
     obs_uv = np.zeros((bucket, Q, 2), np.float32)
     obs_valid = np.zeros((bucket, Q), bool)
@@ -536,5 +544,8 @@ def _run_ba(poses: torch.Tensor, points: torch.Tensor, observations, track_point
         obs_valid=upload(obs_valid, device),
         fixed=upload(fixed, device),
     )
-    out = bundle_adjust(problem, sconfig)
-    return out.poses, out.points[:P]
+    if mesh is None:
+        out = bundle_adjust(problem, sconfig)
+        return out.poses, out.points[:P]
+    out = bundle_adjust_sharded(problem.rows(rank_rows(bucket, mesh)), sconfig, mesh)
+    return out.poses, all_gather([out.points], mesh)[0][:P]

@@ -73,9 +73,34 @@
    Last the sfm CLI on 64 VGA frames panning out and back (batch 16, loop
    closure on): its StageTimer stages, kernels 1-4 launched, kernel 4's
    launches in the closure step.
+8. The parallel paths (akaze_tpu_torch/parallel, bundle_adjust_sharded,
+   run_incremental(mesh=), sfm --mesh), in rank processes that share the
+   card: this script started again with hidden --jobs arguments, one
+   process per rank, joined by the backend parallel.distributed picks
+   (gloo where ranks share a card, as NCCL refuses that).  2 ranks: the DP
+   extract of 128 VGA frames (1 warm-up, 3 passes timed by CUDA events in
+   each rank, launches counted per rank; the gathered features must equal
+   extract_batch's on one rank bit for bit), the row-sharded FED of one VGA
+   octave-0 level (bit-equal to fed_cycle; 4 ranks too), BASELINE config 5
+   through run_incremental(mesh=) twice (bit-equal runs, ATE < 0.05 and
+   within 1e-4 of phase 7's, the same valid points, camera centers within
+   1e-2: a float32 reordering of one rank moves them 8.9e-3), the
+   K = 200 bundle adjustment phase 7 kept, sharded (bit-equal to the same
+   partial sums added in one process, poses within 5e-3 of the single-rank
+   BA) and
+   the 200-keyframe loop scene end to end (ATE and keyframes/s printed,
+   not gated).  3 and 6 ranks: the extract | match | pose pipeline on 24 VGA
+   frames, microbatch 4, on JAX's per-frame draws (match counts equal to
+   the sequential single-rank path, pose inliers within 2).  Last the sfm
+   CLI with --mesh 2 under torch.distributed.run on phase 7's 64 frames
+   (the same tracks, points and closures as phase 7's --mesh 0 run, finite
+   poses; the camera centers' distance to that run is printed: the scene is
+   one textured plane, so float32 reordering alone moves them).  The times are those of ranks sharing one card:
+   no scaling number comes from them.
 
 Prints a JSON line of the sequence and two-view numbers, one of the SfM
-numbers, a JSON line of per-kernel numbers, the card line, and last
+numbers, one of the parallel paths' numbers, a JSON line of per-kernel
+numbers (with each kernel's launches on phase 8's paths, all ranks), the card line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 GPU is present, when the package is missing, or when any check fails.
 """
@@ -84,7 +109,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -589,16 +616,19 @@ def sfm_run_counted(torch, step):
     return out, rec, sites, sum(is_sync[: bounds[0]]), per_window
 
 
-def phase_sfm(torch, np, dev, reset_counts, out: dict) -> None:
+def phase_sfm(torch, np, dev, reset_counts, out: dict, keep: dict) -> None:
     """Phase 7: incremental SfM (BASELINE config 5 and the 200-keyframe
-    loop scene) and the sfm CLI end to end (see the module doc)."""
+    loop scene) and the sfm CLI end to end (see the module doc).  Leaves in
+    `keep` what phase 8 holds its sharded runs against: the 50-keyframe run
+    ("kf50"), one bundle adjustment of the 200-keyframe run's middle window,
+    its input and its poses ("k200"), and the CLI's output ("cli")."""
     import contextlib
     import io
     import tempfile
 
     from akaze_tpu_torch.cli import sfm as cli_sfm
     from akaze_tpu_torch.core.config import RansacConfig, SfmConfig
-    from akaze_tpu_torch.interop import jax_uniform
+    from akaze_tpu_torch.interop import ba_problem_to_numpy, jax_uniform
     from akaze_tpu_torch.kernels import _build
     from akaze_tpu_torch.sfm import incremental, loop_closure
     from akaze_tpu_torch.sfm.metrics import ate_rmse, camera_centers
@@ -645,6 +675,7 @@ def phase_sfm(torch, np, dev, reset_counts, out: dict) -> None:
     # another order, carried through 7 windows of PnP and BA), gate 2e-3.
     if len(c50.track_point) != len(g50.track_point) or not d_centers < 2e-3:
         fail("SfM 50 kf: the card and the CPU twin disagree (valid points, or camera centers beyond 2e-3)")
+    keep["kf50"] = (r50, ate50)
     res_out["kf50"] = {"keyframes": 50, "points": 600, "wall_s": wall50, "keyframes_per_s": 50 / wall50,
                        "ate": ate50, "valid_points": len(r50.track_point), "warmup_s": warm50,
                        "card_vs_cpu_same_draws": {"cpu_wall_s": cpu_wall, "ate": [g_ate, cpu_ate],
@@ -657,7 +688,22 @@ def phase_sfm(torch, np, dev, reset_counts, out: dict) -> None:
           flush=True)
     s200 = sfm_scene(200, 5000, seed=0, loop=True, obs_noise=2e-3)
     K200 = len(s200[0])
-    ra, wall_a, ate_a = run(s200, dev)
+    # Run 1 keeps the 12th bundle adjustment (a K = 200 problem, the CG
+    # solve) for phase 8: its input and its poses.
+    real_ba, n_ba = incremental.bundle_adjust, []
+
+    def keep_ba(problem, config):
+        result = real_ba(problem, config)
+        n_ba.append(1)
+        if len(n_ba) == 12:
+            keep["k200"] = (ba_problem_to_numpy(problem), result.poses.cpu().numpy(), config)
+        return result
+
+    incremental.bundle_adjust = keep_ba
+    try:
+        ra, wall_a, ate_a = run(s200, dev)
+    finally:
+        incremental.bundle_adjust = real_ba
     # Run 2, timed, with the package's CUDA-event spans on and the host
     # syncs counted (neither reads anything back during the run).
     torch.cuda.synchronize()
@@ -687,6 +733,7 @@ def phase_sfm(torch, np, dev, reset_counts, out: dict) -> None:
         fail(f"SfM 200 kf: ATE {ate_a:.4f} / {ate_b:.4f} >= 0.05")
     if not same:
         fail("SfM 200 kf: two runs on the card differ")
+    keep["kf200_ate"] = ate_b
 
     # Run 3 on JAX's draws (interop.jax_uniform, the draws of the reference
     # run): the ATE gate again, and its middle window under torch.profiler
@@ -761,6 +808,7 @@ def phase_sfm(torch, np, dev, reset_counts, out: dict) -> None:
             loop_closure.detect_loop_closures = real
         counts = dict(_build.launches)
         summary = json.loads(out_path.read_text())
+    keep["cli"] = summary
     record = [json.loads(line) for line in log.getvalue().splitlines() if line.startswith("{")][-1]
     stages = record["stage_seconds"]
     print(f"exit {rc_cli} in {cli_wall:.3f} s: {summary['num_tracks']} tracks, {summary['num_points']} points, "
@@ -783,11 +831,536 @@ def phase_sfm(torch, np, dev, reset_counts, out: dict) -> None:
     out["sfm"] = res_out
 
 
+# ---------------------------------------------------------------- phase 8: the parallel paths
+
+PIPE_FRAMES, PIPE_MICROBATCH = 24, 4
+DP_FRAMES = 128
+
+
+def rank_report(mesh, what: dict) -> dict:
+    from akaze_tpu_torch.parallel.distributed import backend
+
+    return {"rank": mesh.rank, "device": str(mesh.device), "backend": backend(), **what}
+
+
+def job_dp(torch, np, work: Path, world: int, device: str) -> dict:
+    """DP extract: this rank's DP_FRAMES / world frames, 1 warm-up and 3
+    timed passes (CUDA events on this rank), then the gather."""
+    import torch.distributed as dist
+
+    from akaze_tpu_torch import interop
+    from akaze_tpu_torch.kernels import _build
+    from akaze_tpu_torch.parallel.mesh import extract_batch_sharded, gather_features, make_mesh, total_valid_keypoints
+
+    mesh = make_mesh(world, device=device)
+    frames = torch.from_numpy(np.load(work / "dp_frames.npy")).to(mesh.device)
+    extract_batch_sharded(frames, mesh)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    pass_ms, walls = [], []
+    for _ in range(3):
+        dist.barrier()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        feats = extract_batch_sharded(frames, mesh)
+        b.record()
+        torch.cuda.synchronize()
+        pass_ms.append(a.elapsed_time(b))
+        dist.barrier()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(_build.launches)
+    t0 = time.perf_counter()
+    full = gather_features(feats, mesh)
+    torch.cuda.synchronize()
+    gather_ms = (time.perf_counter() - t0) * 1e3
+    total = total_valid_keypoints(feats, mesh)
+    if mesh.rank == 0:
+        np.savez(work / "dp_out.npz", **interop.features_to_numpy(full))
+    return rank_report(mesh, {"frames": int(feats.keypoints.x.shape[0]), "pass_ms": pass_ms,
+                                     "pass_wall_ms": walls, "gather_ms": gather_ms, "total_valid": total,
+                                     "launches": launches})
+
+
+def job_spatial(torch, np, work: Path, world: int, device: str) -> dict:
+    """Row-sharded FED of one VGA level: 1 warm-up, 1 timed call, gather."""
+    import torch.distributed as dist
+
+    from akaze_tpu_torch.parallel.collectives import all_gather
+    from akaze_tpu_torch.parallel.mesh import make_mesh
+    from akaze_tpu_torch.parallel.spatial import sharded_fed_cycle
+
+    mesh = make_mesh(world, device=device)
+    with np.load(work / "fed_level.npz") as f:
+        lt, g = (torch.from_numpy(f[k]).to(mesh.device) for k in ("lt", "g"))
+        taus = [float(t) for t in f["taus"]]
+    sharded_fed_cycle(lt, g, taus, mesh)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    block = sharded_fed_cycle(lt, g, taus, mesh)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    full = all_gather([block], mesh)[0]
+    if mesh.rank == 0:
+        np.save(work / f"fed_out_{world}.npy", full.cpu().numpy())
+    return rank_report(mesh, {"rows": int(block.shape[0]), "steps": len(taus), "ms": ms})
+
+
+def _sfm_run(torch, mesh, scene, **kw):
+    import torch.distributed as dist
+
+    from akaze_tpu_torch.core.config import RansacConfig, SfmConfig
+    from akaze_tpu_torch.sfm.incremental import run_incremental
+    from akaze_tpu_torch.sfm.metrics import ate_rmse, camera_centers
+
+    gt, obs, closures = scene
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_incremental(obs, len(gt), SfmConfig(ba_iterations=8), RansacConfig(num_iterations=256,
+                          inlier_threshold=5e-3), ba_every=8, closures=closures or None, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, wall, ate_rmse(camera_centers(res.poses), camera_centers(gt))
+
+
+def job_ba50(torch, np, work: Path, world: int, device: str) -> dict:
+    """BASELINE config 5 through run_incremental(mesh=): 2 runs."""
+    from akaze_tpu_torch.parallel.mesh import make_mesh
+    from akaze_tpu_torch.utils.synthetic import sfm_scene
+
+    mesh = make_mesh(world, device=device)
+    scene = sfm_scene(50, 600, seed=0, obs_noise=5e-4)
+    (r1, w1, a1), (r2, w2, a2) = (_sfm_run(torch, mesh, scene) for _ in range(2))
+    if mesh.rank == 0:
+        np.savez(work / "ba50_out.npz", poses1=r1.poses, points1=r1.points, poses2=r2.poses, points2=r2.points,
+                 tracks1=np.array(sorted(r1.track_point)), tracks2=np.array(sorted(r2.track_point)))
+    return rank_report(mesh, {"wall_s": [w1, w2], "ate": [a1, a2]})
+
+
+def job_k200(torch, np, work: Path, world: int, device: str) -> dict:
+    """One K = 200 window problem of the loop scene (the CG solve), sharded."""
+    import torch.distributed as dist
+
+    from akaze_tpu_torch import interop
+    from akaze_tpu_torch.core.config import SfmConfig
+    from akaze_tpu_torch.parallel.mesh import make_mesh
+    from akaze_tpu_torch.sfm.ba import bundle_adjust_sharded
+
+    mesh = make_mesh(world, device=device)
+    with np.load(work / "k200_problem.npz") as f:
+        problem = interop.ba_problem_from_numpy(dict(f), device=mesh.device)
+        iterations = int(f["iterations"])
+    shard = interop.ba_problem_shards(problem, mesh.size)[mesh.rank]
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = bundle_adjust_sharded(shard, SfmConfig(ba_iterations=iterations), mesh)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if mesh.rank == 0:
+        np.save(work / "k200_out.npy", out.poses.cpu().numpy())
+    return rank_report(mesh, {"points": int(shard.points.shape[0]), "ms": ms})
+
+
+def job_kf200(torch, np, work: Path, world: int, device: str) -> dict:
+    """The 200-keyframe loop scene end to end through run_incremental(mesh=)."""
+    from akaze_tpu_torch.parallel.mesh import make_mesh
+    from akaze_tpu_torch.utils.synthetic import sfm_scene
+
+    mesh = make_mesh(world, device=device)
+    res, wall, ate = _sfm_run(torch, mesh, sfm_scene(200, 5000, seed=0, loop=True, obs_noise=2e-3))
+    return rank_report(mesh, {"wall_s": wall, "ate": ate, "valid_points": len(res.track_point),
+                                     "finite": bool(np.isfinite(res.poses).all())})
+
+
+def job_pipeline(torch, np, work: Path, world: int, device: str) -> dict:
+    """The 3-stage pipeline on a (3, world / 3) mesh, on JAX's per-frame
+    draws, timed once after the launch counts are zeroed."""
+    import torch.distributed as dist
+
+    from akaze_tpu_torch.interop import jax_uniform
+    from akaze_tpu_torch.kernels import _build
+    from akaze_tpu_torch.parallel.pipeline_stage import make_stage_mesh, pipelined_stream
+
+    mesh = make_stage_mesh(world // 3, device=device)
+    frames = np.load(work / "pipe_frames.npy")
+    _build.reset_launches()
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pipelined_stream(frames, mesh, microbatch=PIPE_MICROBATCH,
+                           draws=lambda f, shape: jax_uniform(0, shape, fold_in=f))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if mesh.rank == 0:
+        np.savez(work / f"pipe_out_{world}.npz", **res)
+    return rank_report(mesh, {"stage": mesh.axis_index("stage"), "lane": mesh.axis_index("data"),
+                                     "wall_s": wall, "launches": dict(_build.launches)})
+
+
+def job_cli(torch, np, work: Path, world: int, device: str) -> dict:
+    """The sfm CLI with --mesh world, this process being one of the ranks
+    torch.distributed.run started; the CLI starts and ends the process
+    group itself."""
+    from akaze_tpu_torch.cli import sfm as cli_sfm
+    from akaze_tpu_torch.kernels import _build
+    from akaze_tpu_torch.parallel.distributed import rank_device
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli_sfm.main([str(work / "cli_frames.npy"), "-o", str(work / "cli_out.json"), "--batch", "16",
+                       "--device", device, "--mesh", str(world)])
+    torch.cuda.synchronize()
+    return {"rank": int(os.environ["RANK"]), "device": str(rank_device(device)), "rc": rc,
+            "wall_s": time.perf_counter() - t0, "launches": dict(_build.launches)}
+
+
+RANK_JOBS = {"dp": job_dp, "spatial": job_spatial, "ba50": job_ba50, "k200": job_k200, "kf200": job_kf200,
+             "pipeline": job_pipeline, "cli": job_cli}
+
+
+def rank_main(args) -> int:
+    """One rank of phase 8 (started by phase_parallel): joins the process
+    group (or, under torch.distributed.run, leaves that to the CLI), runs
+    its jobs and writes their reports to the work directory."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    try:
+        from akaze_tpu_torch.parallel import distributed
+    except ImportError as e:
+        fail(f"the akaze_tpu_torch package is not next to this script ({e})")
+    work = Path(args.workdir)
+    jobs = args.jobs.split(",")
+    if args.rank is None:  # started by torch.distributed.run
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    else:
+        rank, world = args.rank, args.world
+        distributed.initialize(f"tcp://127.0.0.1:{args.port}", world_size=world, rank=rank, device=args.device,
+                               timeout_s=240)
+    reports = {job: RANK_JOBS[job](torch, np, work, world, args.device) for job in jobs}
+    (work / f"rank{rank}_{'_'.join(jobs)}.json").write_text(json.dumps(reports))
+    distributed.shutdown()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(work: Path, jobs: str, world: int, device, timeout: float, torchrun: bool = False) -> list:
+    """Run `world` ranks of this script's `jobs` on `device` (all started
+    together, or by torch.distributed.run) to their end within `timeout`
+    seconds; every process is killed on a failure.  Returns the ranks'
+    reports in rank order."""
+    me = [str(Path(__file__).resolve()), "--jobs", jobs, "--workdir", str(work), "--device", str(device.type)]
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("MASTER_", "WORLD_SIZE", "RANK", "LOCAL_"))}
+    if torchrun:
+        cmds = [[sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(world), *me]]
+    else:
+        port = free_port()
+        cmds = [[sys.executable, *me, "--rank", str(r), "--world", str(world), "--port", str(port)]
+                for r in range(world)]
+    logs = [work / f"log_{jobs.replace(',', '_')}_{world}_{i}.txt" for i in range(len(cmds))]
+    procs = []
+    try:
+        for cmd, log in zip(cmds, logs):
+            with open(log, "w") as fh:
+                procs.append(subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT, env=env, start_new_session=True))
+        deadline = time.time() + timeout
+        for p, log in zip(procs, logs):
+            try:
+                p.wait(timeout=max(1.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                fail(f"phase 8 {jobs} on {world} ranks: no end within {timeout:.0f} s:\n{log.read_text()[-3000:]}")
+            if p.returncode != 0:
+                fail(f"phase 8 {jobs} on {world} ranks exited {p.returncode}:\n{log.read_text()[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    name = "_".join(jobs.split(","))
+    return [json.loads((work / f"rank{r}_{name}.json").read_text()) for r in range(world)]
+
+
+def sharded_ba_in_one_process(torch, np, arrays: dict, config, n: int, device):
+    """The poses of an n-rank bundle_adjust_sharded of `arrays` computed in
+    this process: one thread per shard, whose `reduce` adds the shards'
+    partial sums in rank order (what parallel.collectives.all_sum does
+    across processes).  The rank processes must give these bits."""
+    import threading
+
+    from akaze_tpu_torch import interop
+    from akaze_tpu_torch.sfm import ba
+
+    shards = interop.ba_problem_shards(interop.ba_problem_from_numpy(arrays, device=device), n)
+    parts, out, barrier = [None] * n, [None] * n, threading.Barrier(n)
+
+    def run(r):
+        def reduce(x):
+            parts[r] = x
+            barrier.wait()
+            acc = parts[0]
+            for p in parts[1:]:
+                acc = acc + p
+            barrier.wait()
+            return acc
+
+        out[r] = ba._lm_loop(shards[r].replace(obs_cam=shards[r].obs_cam.long()), config, reduce=reduce)
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out[0].poses.cpu().numpy()
+
+
+def phase_parallel(torch, np, dev, keep: dict, out: dict) -> None:
+    """Phase 8: the parallel paths, rank processes sharing the card (see
+    the module doc)."""
+    import tempfile
+
+    from akaze_tpu_torch import interop
+    from akaze_tpu_torch.cli import sfm as cli_sfm
+    from akaze_tpu_torch.core.config import AkazeConfig, RansacConfig, SfmConfig
+    from akaze_tpu_torch.frontend.pipeline import _statics, extract_batch
+    from akaze_tpu_torch.frontend.scale_space import conductivity, fed_cycle, gaussian_blur, scharr
+    from akaze_tpu_torch.frontend.scale_space import contrast_factor_from_modg
+    from akaze_tpu_torch.kernels.fed import base_stage_plain
+    from akaze_tpu_torch.parallel.distributed import choose_backend
+    from akaze_tpu_torch.parallel.pipeline_stage import sequential_stream
+    from akaze_tpu_torch.sfm.incremental import run_incremental
+    from akaze_tpu_torch.sfm.metrics import camera_centers
+    from akaze_tpu_torch.utils.profiling import StageTimer
+    from akaze_tpu_torch.utils.synthetic import textured_scene, video_sequence
+
+    H, W = 480, 640
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(f"\n== parallel paths: rank processes sharing {torch.cuda.device_count()} card(s), compute mode {mode}; "
+          f"backend for 2 ranks on this host: {choose_backend(dev, 2)}", flush=True)
+    res = {"compute_mode": mode, "cards": torch.cuda.device_count()}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        # Inputs and the single-rank references, made here before any rank starts.
+        dp_frames = video_sequence(DP_FRAMES, H, W, seed=60)
+        np.save(work / "dp_frames.npy", dp_frames)
+        dp_ref = interop.features_to_numpy(extract_batch(dp_frames, device=dev))
+        config = AkazeConfig()
+        ss, _ = _statics(W, H, config)
+        level = 1  # octave 0's first diffused level
+        spec = ss.specs[level]
+        if spec.octave != 0 or not spec.taus:
+            fail(f"level {level} is not a diffused level of octave 0")
+        seed, modg = base_stage_plain(torch.from_numpy(video_sequence(1, H, W, seed=61)).to(dev),
+                                      float(config.base_scale_offset))
+        k = contrast_factor_from_modg(modg, config)
+        lsmooth = gaussian_blur(seed, 1.0)
+        g = conductivity(scharr(lsmooth, 1, 0, 1), scharr(lsmooth, 0, 1, 1), k.reshape(-1, 1, 1),
+                         config.diffusivity)
+        lt, g = seed[0].contiguous(), g[0].contiguous()
+        np.savez(work / "fed_level.npz", lt=lt.cpu().numpy(), g=g.cpu().numpy(), taus=np.asarray(spec.taus))
+        fed_ref = fed_cycle(lt, g, spec.taus).cpu().numpy()
+        k200_problem, k200_poses, k200_cfg = keep["k200"]
+        np.savez(work / "k200_problem.npz", **k200_problem, iterations=k200_cfg.ba_iterations)
+        k200_emulated = sharded_ba_in_one_process(torch, np, k200_problem, k200_cfg, 2, dev)
+        from akaze_tpu_torch.sfm.ba import bundle_adjust
+
+        k200_cpu = bundle_adjust(interop.ba_problem_from_numpy(k200_problem, device="cpu"), k200_cfg).poses.numpy()
+        pipe_frames = video_sequence(PIPE_FRAMES, H, W, seed=21)
+        np.save(work / "pipe_frames.npy", pipe_frames)
+        pipe_ref = sequential_stream(pipe_frames, draws=lambda f, shape: interop.jax_uniform(0, shape, fold_in=f),
+                                     device=dev)
+        cli_frames = revisit_frames(np, textured_scene, 64, H, W)
+        np.save(work / "cli_frames.npy", cli_frames)
+        # The CLI scene's own spread under float32 reordering: its SfM on the
+        # CPU, on the front end's tracks and closures, against phase 7's card run.
+        cli_args = argparse.Namespace(intrinsics=None, batch=16, no_loop_closure=False, loop_min_gap=8,
+                                      loop_min_matches=60, loop_min_inliers=30)
+        n_cli, _, cli_obs, cli_closures = cli_sfm._front_end(cli_args, cli_frames, config, dev, StageTimer(device=dev))
+        cli_cpu = run_incremental(cli_obs, n_cli, SfmConfig(ba_iterations=10), RansacConfig(), closures=cli_closures,
+                                  device="cpu")
+        cli_spread = float(np.abs(camera_centers(cli_cpu.poses) - np.asarray(keep["cli"]["camera_centers"])).max())
+        del dp_frames
+        torch.cuda.empty_cache()
+        print(f"inputs and single-rank references: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+        # Two ranks: DP extract, spatial, the sharded BA runs.
+        t0 = time.perf_counter()
+        pair = run_ranks(work, "dp,spatial,ba50,k200,kf200", 2, dev, timeout=420)
+        pair_wall = time.perf_counter() - t0
+        print(f"2 ranks (one process each, {pair_wall:.1f} s with start-up): " + "; ".join(
+            f"rank {r['dp']['rank']} on {r['dp']['device']} backend {r['dp']['backend']}" for r in pair), flush=True)
+        # ---- DP extract
+        got = dict(np.load(work / "dp_out.npz"))
+        same = sorted(got) == sorted(dp_ref) and all(np.array_equal(got[k], v) for k, v in dp_ref.items())
+        pass_ms = [max(r["dp"]["pass_ms"][i] for r in pair) for i in range(3)]
+        wall_ms = [max(r["dp"]["pass_wall_ms"][i] for r in pair) for i in range(3)]
+        dp_launch = [r["dp"]["launches"] for r in pair]
+        print(f"DP extract, {DP_FRAMES} VGA frames over 2 ranks ({pair[0]['dp']['frames']} each): pass ms by rank "
+              + ", ".join(f"rank {r['dp']['rank']} {[round(x, 3) for x in r['dp']['pass_ms']]}" for r in pair)
+              + f"; slowest rank per pass {[round(x, 3) for x in pass_ms]} ({[round(DP_FRAMES / (x / 1e3), 1) for x in pass_ms]}"
+              f" frames/s, ranks sharing one card), barrier-to-barrier {[round(x, 3) for x in wall_ms]} ms; gather "
+              f"{pair[0]['dp']['gather_ms']:.3f} ms; {pair[0]['dp']['total_valid']} valid keypoints; gathered "
+              f"features {'bit-equal' if same else 'DIFFERENT'} to extract_batch on one rank", flush=True)
+        for r, ln in enumerate(dp_launch):
+            print(f"  rank {r} launches over the 3 timed passes: {ln}", flush=True)
+        if not same:
+            fail("DP extract: the gathered features differ from single-rank extract_batch")
+        if pair[0]["dp"]["total_valid"] != int(dp_ref["valid"].sum()):
+            fail("DP extract: total_valid_keypoints differs from the single-rank count")
+        for r, ln in enumerate(dp_launch):
+            for name in ("base_stage", "fused_octave", "describe"):
+                if ln[name] <= 0:
+                    fail(f"DP extract: rank {r} launched no {name}")
+        res["dp"] = {"frames": DP_FRAMES, "ranks": 2, "pass_ms_by_rank": [r["dp"]["pass_ms"] for r in pair],
+                     "pass_ms": pass_ms, "frames_per_s": [DP_FRAMES / (x / 1e3) for x in pass_ms],
+                     "barrier_wall_ms": wall_ms, "gather_ms": pair[0]["dp"]["gather_ms"], "bit_equal": same,
+                     "launches_by_rank": dp_launch}
+
+        # ---- spatial, 2 ranks here and 4 below
+        quad = run_ranks(work, "spatial", 4, dev, timeout=180)
+        sp = {}
+        for world, reports in ((2, pair), (4, quad)):
+            got = np.load(work / f"fed_out_{world}.npy")
+            eq = np.array_equal(got, fed_ref)
+            sp[world] = {"ms_by_rank": [r["spatial"]["ms"] for r in reports], "bit_equal": eq}
+            print(f"spatial: level {level} ({H}x{W}, {len(spec.taus)} FED steps) over {world} ranks of "
+                  f"{reports[0]['spatial']['rows']} rows: ms by rank {[round(r['spatial']['ms'], 3) for r in reports]}; "
+                  f"{'bit-equal' if eq else 'DIFFERENT'} to fed_cycle", flush=True)
+            if not eq:
+                fail(f"spatial: {world} ranks differ from fed_cycle")
+        res["spatial"] = {"level": level, "steps": len(spec.taus), **{f"ranks_{w}": v for w, v in sp.items()}}
+
+        # ---- sharded BA: BASELINE config 5 against phase 7's single-rank run
+        kf50, ate_one = keep["kf50"]
+        with np.load(work / "ba50_out.npz") as f:
+            b50 = dict(f)
+        same_runs = np.array_equal(b50["poses1"], b50["poses2"]) and np.array_equal(b50["points1"], b50["points2"])
+        d_c = float(np.abs(camera_centers(b50["poses2"]) - camera_centers(kf50.poses)).max())
+        same_valid = list(b50["tracks2"]) == sorted(kf50.track_point)
+        w50 = pair[0]["ba50"]["wall_s"]
+        ate50 = pair[0]["ba50"]["ate"]
+        # The centers' gate: a float32 reordering of the single-rank run
+        # itself moves them 8.9e-3 on this scene (4 against 1 CPU threads,
+        # tools/sfm_parity.py), so 1e-2, with the ATE held to 1e-4.
+        print(f"BA: BASELINE config 5 through run_incremental(mesh=2 ranks): runs {[round(x, 3) for x in w50]} s, "
+              f"{50 / w50[1]:.2f} keyframes/s (run 2), ATE {ate50[0]:.5f} / {ate50[1]:.5f} (gate 0.05; one rank "
+              f"{ate_one:.5f}, gate 1e-4 from it), runs {'bit-equal' if same_runs else 'DIFFERENT'}; against phase 7's "
+              f"single-rank run: valid points {len(b50['tracks2'])} / {len(kf50.track_point)} "
+              f"({'same' if same_valid else 'DIFFERENT'}), camera centers max |diff| {d_c:.3e} (gate 1e-2)", flush=True)
+        if not (max(ate50) < 0.05 and abs(ate50[1] - ate_one) < 1e-4 and same_runs and same_valid and d_c < 1e-2):
+            fail("sharded BA, BASELINE config 5: ATE, rerun equality, valid points or camera centers out of gate")
+        got = np.load(work / "k200_out.npy")
+        d200 = float(np.abs(got - k200_poses).max())
+        exact = np.array_equal(got, k200_emulated)
+        d_cpu = float(np.abs(k200_cpu - k200_poses).max())
+        print(f"BA: one K = 200 window problem of the loop scene ({k200_problem['points'].shape[0]} point rows, "
+              f"CG solve), sharded over 2 ranks: {[round(r['k200']['ms'], 3) for r in pair]} ms by rank; poses "
+              f"{'bit-equal' if exact else 'DIFFERENT'} to the same sums added in one process; max |diff| against "
+              f"the single-rank BA {d200:.3e} (gate 5e-3; the single-rank BA on the CPU, another summation order, "
+              f"{d_cpu:.3e} from it)", flush=True)
+        if not (exact and d200 < 5e-3):
+            fail(f"sharded BA, K = 200 problem: not the one-process sums, or poses {d200:.3e} from the single-rank BA")
+        kf = pair[0]["kf200"]
+        print(f"BA: the 200-keyframe loop scene through run_incremental(mesh=2 ranks): {kf['wall_s']:.3f} s, "
+              f"{200 / kf['wall_s']:.2f} keyframes/s, ATE {kf['ate']:.5f} (printed, not gated; phase 7's single "
+              f"rank: {keep['kf200_ate']:.5f}), {kf['valid_points']} valid points", flush=True)
+        if not all(r["kf200"]["finite"] for r in pair):
+            fail("the 200-keyframe run over 2 ranks gave non-finite poses")
+        res["ba"] = {"kf50": {"wall_s": w50, "keyframes_per_s": 50 / w50[1], "ate": ate50, "ate_one_rank": ate_one,
+                              "bit_equal_runs": same_runs,
+                              "same_valid_points": same_valid, "centers_max_diff": d_c},
+                     "k200_problem": {"ms_by_rank": [r["k200"]["ms"] for r in pair], "poses_max_diff": d200,
+                                      "bit_equal_one_process": exact, "single_cpu_max_diff": d_cpu},
+                     "kf200": {"wall_s": kf["wall_s"], "keyframes_per_s": 200 / kf["wall_s"], "ate": kf["ate"],
+                               "valid_points": kf["valid_points"]}}
+
+        # ---- pipeline on 3 and 6 ranks
+        pipe = {}
+        for world in (3, 6):
+            reports = [r["pipeline"] for r in run_ranks(work, "pipeline", world, dev, timeout=240)]
+            with np.load(work / f"pipe_out_{world}.npz") as f:
+                counts, inl = f["match_counts"], f["pose_inliers"]
+            c_eq = np.array_equal(counts, pipe_ref["match_counts"])
+            d_inl = int(np.abs(inl - pipe_ref["pose_inliers"]).max())
+            total = {n: sum(r["launches"][n] for r in reports) for n in ("base_stage", "fused_octave", "describe",
+                                                                      "match")}
+            print(f"pipeline: {PIPE_FRAMES} VGA frames, microbatch {PIPE_MICROBATCH}, (stage, data) = (3, "
+                  f"{world // 3}): {max(r['wall_s'] for r in reports):.3f} s; match counts "
+                  f"{'equal' if c_eq else 'DIFFERENT'} to the sequential single-rank path, pose inliers max |diff| "
+                  f"{d_inl} (gate 2)", flush=True)
+            for r in reports:
+                print(f"  rank {r['rank']} (stage {r['stage']}, lane {r['lane']}, {r['device']}, {r['backend']}): "
+                      f"launches {r['launches']}", flush=True)
+            if not (c_eq and d_inl <= 2):
+                fail(f"pipeline on {world} ranks: counts differ or inliers beyond 2")
+            for n, v in total.items():
+                if v <= 0:
+                    fail(f"pipeline on {world} ranks: kernel {n} was not launched")
+            pipe[f"ranks_{world}"] = {"wall_s": max(r["wall_s"] for r in reports), "counts_equal": c_eq,
+                                      "inliers_max_diff": d_inl,
+                                      "launches_by_rank": [r["launches"] for r in reports]}
+        res["pipeline"] = {"frames": PIPE_FRAMES, "microbatch": PIPE_MICROBATCH, **pipe}
+
+        # ---- the sfm CLI with --mesh 2 under torch.distributed.run
+        t0 = time.perf_counter()
+        cli = [r["cli"] for r in run_ranks(work, "cli", 2, dev, timeout=300, torchrun=True)]
+        cli_wall = time.perf_counter() - t0
+        got, ref = json.loads((work / "cli_out.json").read_text()), keep["cli"]
+        d_cli = float(np.abs(np.asarray(got["camera_centers"]) - np.asarray(ref["camera_centers"])).max())
+        keys = ("num_frames", "num_tracks", "num_points", "num_loop_closures")
+        print(f"sfm CLI --mesh 2 under torch.distributed.run ({cli_wall:.1f} s with start-up; ranks "
+              f"{[round(r['wall_s'], 3) for r in cli]} s): " + ", ".join(f"{k} {got[k]} / {ref[k]}" for k in keys)
+              + f" (--mesh 2 / phase 7's --mesh 0); camera centers max |diff| {d_cli:.3e}, trajectory within "
+              f"{np.abs(np.asarray(ref['camera_centers'])).max():.3f} of the origin (printed, not gated: the scene is "
+              f"one textured plane, and the same SfM on the CPU, another summation order, lands {cli_spread:.3e} from "
+              "phase 7's card run)", flush=True)
+        for r in cli:
+            print(f"  rank {r['rank']} on {r['device']}: exit {r['rc']}, launches {r['launches']}", flush=True)
+        if (any(r["rc"] != 0 for r in cli) or any(got[k] != ref[k] for k in keys)
+                or not np.isfinite(np.asarray(got["poses"])).all()):
+            fail("sfm CLI --mesh 2: a rank failed, the tracks, points or closures differ from the --mesh 0 run, or "
+                 "a pose is not finite")
+        for n in ("base_stage", "fused_octave", "describe", "match"):
+            if sum(r["launches"][n] for r in cli) <= 0:
+                fail(f"sfm CLI --mesh 2: kernel {n} was not launched")
+        res["cli"] = {"wall_s": cli_wall, "rank_wall_s": [r["wall_s"] for r in cli], "centers_max_diff": d_cli,
+                      "cpu_centers_max_diff": cli_spread,
+                      "launches_by_rank": [r["launches"] for r in cli]}
+    res["launches"] = {n: sum(ln[n] for ln in res["dp"]["launches_by_rank"] + res["cli"]["launches_by_rank"]
+                              + [x for w in (3, 6) for x in res["pipeline"][f"ranks_{w}"]["launches_by_rank"]])
+                       for n in ("base_stage", "fused_octave", "describe", "match")}
+    print(f"kernels 1-4 launched on phase 8's paths (all ranks): {res['launches']}", flush=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 8: {res['phase_s']:.1f} s", flush=True)
+    out["parallel"] = res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--reps", type=int, default=3)
+    # A rank of phase 8 (started by phase_parallel, not by hand).
+    for name in ("--jobs", "--workdir", "--device"):
+        ap.add_argument(name, help=argparse.SUPPRESS)
+    for name in ("--rank", "--world", "--port"):
+        ap.add_argument(name, type=int, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.jobs:
+        return rank_main(args)
 
     import numpy as np
     import torch
@@ -1351,10 +1924,15 @@ def main() -> int:
     print(json.dumps({"sequence_two_view": sequence}), flush=True)
 
     # ------------------------------------------------------------ phase 7
-    sfm = {}
-    phase_sfm(torch, np, dev, reset_counts, sfm)
+    sfm, kept = {}, {}
+    phase_sfm(torch, np, dev, reset_counts, sfm, kept)
     print(json.dumps(sfm), flush=True)
     sfm_launches = sfm["sfm"]["cli"]["launches"]
+
+    # ------------------------------------------------------------ phase 8
+    parallel = {}
+    phase_parallel(torch, np, dev, kept, parallel)
+    print(json.dumps(parallel), flush=True)
 
     # The level chain's launch structure: __global__ launches and device
     # time under the profiler (phase 2's rows).
@@ -1372,6 +1950,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": t, "bound_by": by, "library_ms": r.get("library_ms"),
             "wrapper_ms": r["wrapper_ms"], "global_launches": r["global_launches"],
             "sfm_cli_launches": sfm_launches.get(name, 0),
+            "parallel_launches": parallel["parallel"]["launches"].get(name, 0),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)  # nvidia-smi's name and power limit, as it prints them

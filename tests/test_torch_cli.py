@@ -125,10 +125,12 @@ def test_cli_sfm_and_keys_equal_jax(tmp_path):
 
 
 def test_cli_sfm_refuses_mesh(tmp_path, capsys):
+    """A --mesh that differs from the world size (one process here) is refused."""
     with pytest.raises(SystemExit) as e:
         cli_sfm.main([str(tmp_path / "none.npy"), "-o", str(tmp_path / "o.json"), "--mesh", "4", *_CPU])
     assert e.value.code == 2
-    assert "parallel paths" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "--mesh 4" in err and "torch.distributed.run --nproc-per-node 4" in err
 
 
 def test_cli_pgm_end_to_end(tmp_path):

@@ -4,7 +4,8 @@ describe, the per-level extract_fn) and the video front end through the
 kernels against the same through the twins, the two-view pose on the
 card against the CPU and the reference bound, and the SfM stack (bundle
 adjustment, PnP, pose graph, a whole run) on the card against the CPU and
-against itself (bit-equal reruns).  Every test needs an NVIDIA GPU and skips without one; the file
+against itself (bit-equal reruns); and two ranks sharing the card (gloo)
+running the sharded BA and the data-parallel extract.  Every test needs an NVIDIA GPU and skips without one; the file
 imports no JAX, so it runs on a GPU machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -43,7 +44,7 @@ from akaze_tpu_torch.sfm.pose_graph import PoseGraph, optimize_pose_graph, relat
 from akaze_tpu_torch.utils.synthetic import multi_plane_pair, sfm_scene, video_sequence
 from torch_port_helpers import (  # noqa: F401 (cuda: a fixture)
     MATCH_CASES, ROT_BOUND_DEG, TDIR_BOUND_DEG, assert_same_pose, cuda, custom_plan, match_case,
-    match_descriptors, pair_keypoints, rot_deg, tdir_err_deg, trajectory_problem,
+    match_descriptors, pair_keypoints, rot_deg, tdir_err_deg, run_ranks, trajectory_problem,
 )
 
 pytestmark = pytest.mark.gpu
@@ -553,9 +554,34 @@ def test_sfm_on_card_is_deterministic_and_matches_cpu(cuda):
 
 
 def test_cli_sfm_refuses_mesh_on_card(cuda, tmp_path, capsys):
+    """--mesh 2 in a world of one process is refused; run_incremental takes
+    only a parallel mesh."""
     np.save(tmp_path / "fr.npy", video_sequence(2, 96, 128, seed=5))
     with pytest.raises(SystemExit) as e:
         cli_sfm.main([str(tmp_path / "fr.npy"), "-o", str(tmp_path / "s.json"), "--mesh", "2", "--device", "cuda"])
-    assert e.value.code == 2 and "parallel paths" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="parallel paths"):
+    assert e.value.code == 2 and "torch.distributed.run --nproc-per-node 2" in capsys.readouterr().err
+    with pytest.raises(TypeError, match="Mesh"):
         run_incremental([], 2, mesh=object(), device=cuda)
+
+
+def test_two_ranks_share_the_card_for_sharded_ba(cuda, tmp_path):
+    """2 rank processes on one card (gloo): the sharded BA within 5e-4 of
+    bundle_adjust on the card, two runs bit-equal."""
+    fields = trajectory_problem(K=12, P=64, Q=4)[0]
+    got = run_ranks("ba", 2, tmp_path, fields, {"iterations": 6, "device": "cuda"}, timeout=300)
+    assert bool(got["rerun_equal"])
+    single = sfm_ba.bundle_adjust(interop.ba_problem_from_numpy(fields, device=cuda), SfmConfig(ba_iterations=6))
+    np.testing.assert_allclose(got["poses"], single.poses.cpu().numpy(), atol=5e-4, rtol=0)
+
+
+def test_two_ranks_share_the_card_for_dp_extract(cuda, tmp_path):
+    """2 rank processes on one card: the gathered features of the sharded
+    batch equal extract_batch's on the card bit for bit."""
+    _build.build()  # once here, not in each rank
+    frames = video_sequence(8, H, W, seed=4)
+    cfg = dict(max_keypoints=256)
+    got = run_ranks("extract", 2, tmp_path, {"frames": frames}, {"config": cfg, "device": "cuda"}, timeout=300)
+    want = interop.features_to_numpy(extract_batch(frames, AkazeConfig(**cfg), device=cuda))
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    assert int(got["total_valid"]) == int(want["valid"].sum()) > 0

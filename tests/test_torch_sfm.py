@@ -419,7 +419,7 @@ def test_debug_checks_raise_on_nan_only_while_on(scene):
 
 def test_run_incremental_entry_point_contracts(scene):
     observations = scene[0]
-    with pytest.raises(NotImplementedError, match="parallel paths"):
+    with pytest.raises(TypeError, match="Mesh"):
         TI.run_incremental(observations, 10, mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

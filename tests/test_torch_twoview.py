@@ -314,10 +314,14 @@ def test_twoview_turns_tf32_off_at_its_own_import():
 
 
 def test_copied_configs_and_synthetic_pairs_equal_jax():
-    for cls, jcls in ((config.RansacConfig, jax_config.RansacConfig), (config.SfmConfig, jax_config.SfmConfig)):
+    for cls, jcls in ((config.RansacConfig, jax_config.RansacConfig), (config.SfmConfig, jax_config.SfmConfig),
+                      (config.MeshConfig, jax_config.MeshConfig)):
         assert dataclasses.asdict(cls()) == dataclasses.asdict(jcls())
         assert [f.name for f in dataclasses.fields(cls)] == [f.name for f in dataclasses.fields(jcls)]
         assert cls.__dataclass_params__.frozen
+    mesh = jax_config.MeshConfig(data=3, spatial=2)
+    assert interop.config_from_fields(dataclasses.asdict(mesh)) == config.MeshConfig(data=3, spatial=2)
+    assert config.MeshConfig(data=3, spatial=2).num_devices == mesh.num_devices == 6
     for seed in (5, 11):
         for got, want in zip(synthetic.multi_plane_pair(seed=seed), jax_synthetic.multi_plane_pair(seed=seed)):
             np.testing.assert_array_equal(np.asarray(got), np.asarray(want))

@@ -5,6 +5,15 @@ on a machine without JAX."""
 
 from __future__ import annotations
 
+import os
+import pickle
+import select
+import socket
+import subprocess
+import sys
+import time
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -183,3 +192,79 @@ def trajectory_problem(K=72, P=320, Q=4, pose_err=0.01, pt_err=0.05, seed=5):
     fields = dict(poses=init_poses.astype(np.float32), points=init_pts.astype(np.float32), obs_cam=obs_cam,
                   obs_uv=obs_uv, obs_valid=np.ones((P, Q), bool), fixed=fixed)
     return fields, poses
+
+
+# ---------------------------------------------------------------- rank processes
+
+RANK_WORKER = Path(__file__).resolve().parent / "torch_rank_worker.py"
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(job: str, world: int, workdir: Path, port: int | None = None, ranks=None) -> list:
+    """Start `tests/torch_rank_worker.py JOB` as ranks `ranks` (default all)
+    of a world of `world`, stdout and stderr piped together."""
+    port = port or free_port()
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("MASTER_", "WORLD_SIZE", "RANK", "LOCAL_"))}
+    return [subprocess.Popen([sys.executable, "-u", str(RANK_WORKER), job, str(r), str(world), str(port),
+                              str(workdir)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+            for r in (range(world) if ranks is None else ranks)]
+
+
+def reap(procs) -> None:
+    """Kill and reap every process still running."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+        if p.stdout is not None:
+            p.stdout.close()
+
+
+def await_line(proc, needle: str, timeout: float) -> bool:
+    """Whether `needle` appears in a line of proc's stdout within `timeout`
+    seconds; select() gates each read, so a silent child cannot block past
+    the deadline."""
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        ready, _, _ = select.select([proc.stdout], [], [], 1.0)
+        if not ready:
+            if proc.poll() is not None:
+                return False
+            continue
+        line = proc.stdout.readline()
+        if not line and proc.poll() is not None:
+            return False
+        if needle in line:
+            return True
+    return False
+
+
+def run_ranks(job: str, world: int, workdir: Path, arrays: dict | None = None, extra: dict | None = None,
+              timeout: float = 120.0) -> dict:
+    """Write the job's inputs to `workdir`, run `world` ranks of it to their
+    end within `timeout` seconds (all killed on failure) and return rank 0's
+    out.npz as a dict."""
+    workdir = Path(workdir)
+    workdir.mkdir(parents=True, exist_ok=True)
+    if arrays is not None:
+        np.savez(workdir / "in.npz", **arrays)
+    if extra is not None:
+        (workdir / "in.pkl").write_bytes(pickle.dumps(extra))
+    procs = spawn_ranks(job, world, workdir)
+    deadline = time.time() + timeout
+    try:
+        logs = []
+        for p in procs:
+            out, _ = p.communicate(timeout=max(1.0, deadline - time.time()))
+            logs.append(out)
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            assert p.returncode == 0 and "DONE" in log, f"rank {r} of {job} failed:\n{log[-3000:]}"
+    finally:
+        reap(procs)
+    with np.load(workdir / "out.npz") as f:
+        return dict(f)

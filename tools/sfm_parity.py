@@ -4,6 +4,7 @@ or the card, and print its ATE after every BA window and at the end.
     python tools/sfm_parity.py jax 200 2000 --loop --noise 2e-3 --save jax.npz
     python tools/sfm_parity.py port 200 2000 --loop --noise 2e-3 [--device cuda] --save port.npz
     python tools/sfm_parity.py compare jax.npz port.npz   # camera centers, max |diff|, by window
+    python tools/sfm_parity.py port 50 600 --threads 1 --save t1.npz   # the same run, summed in another order
     python tools/sfm_parity.py ba-probe 3   # JAX's first 3 BA problems of the 200-kf loop scene
 
 ba-probe (JAX and the port on the CPU) catches the BA problems the JAX
@@ -61,6 +62,7 @@ def main() -> int:
     ap.add_argument("--no-closures", action="store_true")
     ap.add_argument("--own-draws", action="store_true", help="port: its own torch.Generator draws")
     ap.add_argument("--device", default="cpu", help="port: torch device")
+    ap.add_argument("--threads", type=int, help="port: torch CPU threads (another float32 summation order)")
     args = ap.parse_args()
 
     kw = {}
@@ -78,6 +80,10 @@ def main() -> int:
         from akaze_tpu_torch.utils.synthetic import sfm_scene
 
         kw = dict(device=args.device, draws=None if args.own_draws else jax_uniform)
+        if args.threads:
+            import torch
+
+            torch.set_num_threads(args.threads)
     gt, obs, closures = sfm_scene(args.keyframes, args.points, seed=0, loop=args.loop, obs_noise=args.noise)
     n = args.prefix or args.keyframes
     history, window_poses = [], []
