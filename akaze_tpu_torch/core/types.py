@@ -10,7 +10,10 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
+
+from akaze_tpu_torch.core.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -53,3 +56,22 @@ class Features:
 
     def index(self, i) -> "Features":
         return Features(self.keypoints.index(i), self.descriptors[i])
+
+
+def empty_keypoints(capacity: int, batch: tuple = (), device="cuda") -> Keypoints:
+    """All-zero, all-invalid keypoints of shape (*batch, capacity) on
+    `device` (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
+    shape = (*batch, capacity)
+    f32 = torch.zeros(shape, dtype=torch.float32, device=device)
+    i32 = torch.zeros(shape, dtype=torch.int32, device=device)
+    return Keypoints(
+        x=f32, y=f32.clone(), response=f32.clone(), size=f32.clone(),
+        octave=i32, class_id=i32.clone(), angle=f32.clone(),
+        valid=torch.zeros(shape, dtype=torch.bool, device=device),
+    )
+
+
+def keypoints_to_numpy(kps: Keypoints) -> dict[str, np.ndarray]:
+    """Every field of `kps` as a numpy array (copied to the host)."""
+    return {f.name: getattr(kps, f.name).cpu().numpy() for f in dataclasses.fields(kps)}

@@ -111,7 +111,11 @@ def conductivity(lx: torch.Tensor, ly: torch.Tensor, k: torch.Tensor, kind: Diff
         g2_4 = grad2 * grad2
         g2_4 = g2_4 * g2_4
         safe = torch.where(g2_4 > 0, g2_4, torch.ones_like(g2_4))
-        return torch.where(grad2 > 0.0, 1.0 - torch.exp(-3.315 / safe), torch.ones_like(g2_4))
+        # A true division, as kernels 2 and 5 and the reference compute it:
+        # `-3.315 / safe` would run as reciprocal(safe) * -3.315, which
+        # rounds differently on ~25 % of pixels.
+        return torch.where(grad2 > 0.0, 1.0 - torch.exp(torch.full_like(safe, -3.315) / safe),
+                           torch.ones_like(g2_4))
     raise ValueError(kind)
 
 

@@ -15,6 +15,8 @@ numpy arrays, so this module imports nothing of the JAX package:
     scores = jax_uniform(0, (512, 1024))  # = jax.random.uniform(PRNGKey(0), ...)
     scores = jax_uniform(0, (64, 128), fold_in=7)  # ... (fold_in(PRNGKey(0), 7), ...)
     shards = ba_problem_shards(problem, 2)  # the point blocks of bundle_adjust_sharded
+    gold = golden_to_numpy(golden.akaze.extract(img))  # the oracles' outputs under
+    nat = native_to_numpy(*native.extract_native(img))  # features_to_numpy's keys
 
 `jax_uniform` lets a machine without JAX feed the port the very random
 scores of a JAX experiment (`estimate_relative_pose_fn(..., sample_scores=)`).
@@ -74,6 +76,38 @@ def features_from_numpy(arrays: dict, device="cuda") -> Features:
     }
     desc = np.array(arrays["descriptors"]).view(np.int32)
     return Features(keypoints=Keypoints(**kp), descriptors=torch.from_numpy(desc).to(device))
+
+
+def pack_descriptor_bytes(desc: np.ndarray, words: int = 16) -> np.ndarray:
+    """(N, 61) uint8 descriptors -> (N, words) little-endian uint32 words,
+    the layout of the card's descriptors (bits past the 486th are 0)."""
+    desc = np.asarray(desc, np.uint8)
+    padded = np.zeros((desc.shape[0], 4 * words), np.uint8)
+    padded[:, : desc.shape[1]] = desc
+    return padded.view("<u4")
+
+
+def golden_to_numpy(result) -> dict:
+    """The golden NumPy model's `extract` result as `features_to_numpy`
+    arrays: one valid slot per keypoint, in the oracle's order."""
+    kps = result.keypoints
+    out = {name: np.array([getattr(k, name) for k in kps], _KEYPOINT_DTYPES[name])
+           for name in _KEYPOINT_FIELDS if name != "valid"}
+    out["valid"] = np.ones(len(kps), np.bool_)
+    out["descriptors"] = pack_descriptor_bytes(result.descriptors.reshape(len(kps), -1))
+    return out
+
+
+def native_to_numpy(kps: np.ndarray, desc: np.ndarray) -> dict:
+    """`native.extract_native`'s (N, 7) keypoint rows (x, y, response, size,
+    octave, class_id, angle) and (N, 61) descriptor bytes as
+    `features_to_numpy` arrays."""
+    kps = np.asarray(kps, np.float32).reshape(-1, 7)
+    cols = ("x", "y", "response", "size", "octave", "class_id", "angle")
+    out = {name: kps[:, i].astype(_KEYPOINT_DTYPES[name]) for i, name in enumerate(cols)}
+    out["valid"] = np.ones(len(kps), np.bool_)
+    out["descriptors"] = pack_descriptor_bytes(desc)
+    return out
 
 
 #: The fields of a bundle-adjustment problem, in both packages.

@@ -1,7 +1,10 @@
 """Deterministic synthetic scenes (own copy of the JAX package's
-`textured_scene`, `video_sequence`, `warp_homography`, `multi_plane_pair`
-and `sfm_scene`, numpy only).  Same seed, same pixels as the reference,
-so the two packages can be fed identical frames."""
+`textured_scene`, `video_sequence`, `warp_homography`, `multi_plane_pair`,
+`sfm_scene` and the five adversarial scene classes of `SCENE_CLASSES`,
+numpy only).  Same seed, same pixels as the reference, so the two packages
+can be fed identical frames.  Pass shapes and seeds as Python ints: an
+np.int64 scalar promotes the float32 arithmetic to float64 and changes the
+pixels at the ulp level."""
 
 from __future__ import annotations
 
@@ -74,6 +77,72 @@ def warp_homography(img: np.ndarray, H: np.ndarray) -> np.ndarray:
     return np.where(inside, out, 0.0).astype(np.float32)
 
 
+def rotation_homography(height: int, width: int, angle_rad: float) -> np.ndarray:
+    """Homography rotating the image about its center by `angle_rad`."""
+    c, s = np.cos(angle_rad), np.sin(angle_rad)
+    cx, cy = (width - 1) / 2.0, (height - 1) / 2.0
+    t0 = np.array([[1, 0, -cx], [0, 1, -cy], [0, 0, 1.0]])
+    r = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1.0]])
+    t1 = np.array([[1, 0, cx], [0, 1, cy], [0, 0, 1.0]])
+    return t1 @ r @ t0
+
+
+def rotated_scene(height: int = 480, width: int = 640, angle_rad: float = 0.6, seed: int = 0) -> np.ndarray:
+    """Rotation-dominant warp of the textured scene (adversarial for the
+    cross-level NMS chains and the orientation assignment)."""
+    base = textured_scene(height, width, seed=seed)
+    return warp_homography(base, rotation_homography(height, width, angle_rad))
+
+
+def low_texture_scene(height: int = 480, width: int = 640, seed: int = 0) -> np.ndarray:
+    """Weak-gradient scene: smooth ramps and a few faint wide blobs.  It
+    stresses the contrast-factor percentile and the detector threshold
+    (few, weak extrema, where count parity is fragile)."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:height, 0:width].astype(np.float32)
+    img = 0.5 + 0.05 * np.sin(2 * np.pi * x / width) + 0.04 * (y / height)
+    for _ in range(12):
+        cx = rng.uniform(0.1, 0.9) * width
+        cy = rng.uniform(0.1, 0.9) * height
+        s = rng.uniform(5.0, 18.0)
+        img += rng.uniform(-0.12, 0.12) * np.exp(-((x - cx) ** 2 + (y - cy) ** 2) / (2 * s * s))
+    img += 0.004 * rng.normal(0.0, 1.0, img.shape).astype(np.float32)
+    img -= img.min()
+    img /= max(img.max(), 1e-6)
+    return img.astype(np.float32)
+
+
+def repetitive_grid_scene(height: int = 480, width: int = 640, seed: int = 0) -> np.ndarray:
+    """Strictly periodic grid of blobs: every extremum has near-identical
+    twins one period away, the worst case for the NMS radius and chain
+    rules and for the matcher's ratio test."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:height, 0:width].astype(np.float32)
+    p = 24.0
+    img = 0.4 + 0.25 * np.cos(2 * np.pi * x / p) * np.cos(2 * np.pi * y / p)
+    img += 0.1 * ((np.floor(x / p) + np.floor(y / p)) % 2 - 0.5)
+    img += 0.01 * rng.normal(0.0, 1.0, img.shape).astype(np.float32)
+    img -= img.min()
+    img /= img.max()
+    return img.astype(np.float32)
+
+
+def illumination_ramp_scene(height: int = 480, width: int = 640, seed: int = 0) -> np.ndarray:
+    """The textured scene under a strong multiplicative illumination ramp
+    and a vignette: stresses the contrast factor and the descriptor's
+    mean comparisons."""
+    base = textured_scene(height, width, seed=seed)
+    y, x = np.mgrid[0:height, 0:width].astype(np.float32)
+    ramp = 0.35 + 0.65 * (x / width)
+    cx, cy = width / 2.0, height / 2.0
+    r2 = ((x - cx) / width) ** 2 + ((y - cy) / height) ** 2
+    vignette = 1.0 - 0.5 * r2 / r2.max()
+    img = base * ramp * vignette + 0.05
+    img -= img.min()
+    img /= img.max()
+    return img.astype(np.float32)
+
+
 def multi_plane_pair(height: int = 240, width: int = 320, seed: int = 5, rows: int = 2, cols: int = 3):
     """Calibrated two-view pair with known relative pose: the second view
     sees a rows x cols grid of planes (distinct normals and depths) of the
@@ -103,6 +172,16 @@ def multi_plane_pair(height: int = 240, width: int = 320, seed: int = 5, rows: i
             region = (yy * rows // height == r) & (xx * cols // width == c)
             img_b = np.where(region, warp, img_b)
     return img_a, img_b.astype(np.float32), R, t, (float(width), float(width), width / 2.0, height / 2.0)
+
+
+#: The adversarial scene classes, each called as f(height, width, seed=seed).
+SCENE_CLASSES = {
+    "textured": textured_scene,
+    "rotated": rotated_scene,
+    "low_texture": low_texture_scene,
+    "repetitive_grid": repetitive_grid_scene,
+    "illumination_ramp": illumination_ramp_scene,
+}
 
 
 def _rotvec_to_matrix_np(rv: np.ndarray) -> np.ndarray:

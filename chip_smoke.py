@@ -97,10 +97,30 @@
    poses; the camera centers' distance to that run is printed: the scene is
    one textured plane, so float32 reordering alone moves them).  The times are those of ranks sharing one card:
    no scaling number comes from them.
+9. Oracles and conductivity variants (BASELINE config 3): prints the host
+   CPU and g++, builds akaze_tpu_torch/native (a failed build fails the
+   run).  extract_batch on batch 64 of VGA video_sequence frames (seeds
+   0-2) with Diffusivity.PM_G1 and WEICKERT, 1 warm-up and 3 timed passes
+   (CUDA events, frames/s, launches counted from zero: kernels 1-3 must
+   launch); on one batch of each, kernel 2 bit for bit against
+   fused_octave_plain, and on one VGA frame extract_fn (kernels 1, 5, 7)
+   equal to the plain path and kernel 5 bit for bit level by level.  The
+   native single-core C++ pipeline (bench_pipeline_native on
+   video_sequence(2, 480, 640, seed=1), reps 3) for pm_g2, pm_g1 and
+   weickert, with the card's frames/s over it.  Every SCENE_CLASSES scene
+   at the golden scene snapshot's shape and seed through extract on the
+   card, held to tests/test_scene_regression.py's gates; the golden NumPy
+   copy on this machine's NumPy equal to tests/data/golden_snapshot.npz on
+   its stored image (tests/torch_data).  On textured_scene(480, 640,
+   seed=0) the card against extract_native for the three diffusivities
+   (card -> native >= 90 % within 0.5 px, median <= 4 bits), and kernel 4's
+   matcher against the native matcher on a VGA pair (the same accepted
+   pairs, the same distances).
 
 Prints a JSON line of the sequence and two-view numbers, one of the SfM
-numbers, one of the parallel paths' numbers, a JSON line of per-kernel
-numbers (with each kernel's launches on phase 8's paths, all ranks), the card line, and last
+numbers, one of the parallel paths' numbers, one of phase 9's, a JSON line
+of per-kernel numbers (with each kernel's launches on phase 8's paths, all
+ranks, and on phase 9's), the card line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 GPU is present, when the package is missing, or when any check fails.
 """
@@ -1349,6 +1369,299 @@ def phase_parallel(torch, np, dev, keep: dict, out: dict) -> None:
     out["parallel"] = res
 
 
+# ---------------------------------------------------------------- phase 9: oracles and conductivity variants
+
+
+def ulp_gap(torch, a, b) -> int:
+    """The largest ULP distance between two float32 tensors (int32 tensors:
+    the largest absolute difference)."""
+    if a.dtype != torch.float32:
+        return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+    ia, ib = a.contiguous().view(torch.int32).long(), b.contiguous().view(torch.int32).long()
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max()) if a.numel() else 0
+
+
+def oracle_gates(np, got: dict, ref: dict) -> dict:
+    """tests/test_scene_regression.py's numbers for `got` (one frame's
+    features_to_numpy arrays) against `ref` (an oracle's, same keys):
+    counts, the share of got's keypoints within 0.5 px of one of ref's and
+    the reverse, and the median Hamming distance over got's matched
+    keypoints (by position)."""
+    v = got["valid"]
+    gx, gy, gd = got["x"][v], got["y"][v], got["descriptors"][v]
+    n_got, n_ref = int(v.sum()), len(ref["x"])
+    if not n_got or not n_ref:
+        return {"n": n_got, "n_ref": n_ref, "got_to_ref": float(n_got == n_ref), "ref_to_got": float(n_got == n_ref),
+                "median_bits": 0.0}
+    d2 = (gx[:, None] - ref["x"][None, :]) ** 2 + (gy[:, None] - ref["y"][None, :]) ** 2
+    dmin = np.sqrt(d2.min(1))
+    ok = dmin < 0.5
+    ham = np.bitwise_count(ref["descriptors"][d2.argmin(1)[ok]] ^ gd[ok]).sum(1)
+    return {"n": n_got, "n_ref": n_ref, "got_to_ref": float(ok.mean()),
+            "ref_to_got": float((np.sqrt(d2.min(0)) < 0.5).mean()),
+            "median_bits": float(np.median(ham)) if len(ham) else 0.0}
+
+
+def phase_oracles(torch, np, dev, root: Path, card: str, reset_counts, main_fps: float, main_best: float,
+                  out: dict) -> None:
+    """Phase 9: BASELINE config 3 (the g1 and Weickert conductivities)
+    through kernels 1-3 and 5 at full width, held against the plain twins
+    bit for bit; the native single-core C++ baseline on this host; the card
+    against the golden NumPy model's scene snapshots and against the native
+    extract and matcher.  Every miss fails the run.  `out["oracles"]` gets
+    the numbers and each kernel's launches on this phase's paths (not
+    counting the launches that hold a kernel against its twin).  main_fps
+    and main_best: phase 3's main-path frames/s (mean and best pass)."""
+    from akaze_tpu_torch import interop, native
+    from akaze_tpu_torch.core.config import AkazeConfig, Diffusivity, MatchConfig
+    from akaze_tpu_torch.frontend.pipeline import _statics, extract, extract_batch, extract_fn
+    from akaze_tpu_torch.frontend.scale_space import contrast_factor_from_modg, half_size
+    from akaze_tpu_torch.golden import akaze as golden
+    from akaze_tpu_torch.kernels import _build
+    from akaze_tpu_torch.kernels.fed import (
+        base_stage_plain, fused_level_batched, fused_level_batched_plain, fused_octave, fused_octave_plain,
+        octave_groups,
+    )
+    from akaze_tpu_torch.matching.hamming import match_features
+    from akaze_tpu_torch.utils.synthetic import SCENE_CLASSES, textured_scene, video_sequence
+
+    t_phase = time.perf_counter()
+    res = {"launches": dict.fromkeys(_build.launches, 0)}
+
+    def path_launches() -> dict:
+        """The counts since the last reset, added to the phase's."""
+        got = dict(_build.launches)
+        for name, n in got.items():
+            res["launches"][name] += n
+        return got
+
+    # ---- a. host and compiler
+    print("\n== phase 9: oracles and conductivity variants", flush=True)
+    cpu = native.cpu_model()
+    print(f"host CPU: {cpu}; compiler: {native.compiler_version()}", flush=True)
+    t0 = time.perf_counter()
+    try:
+        lib = native.build()
+    except RuntimeError as e:
+        fail(f"the native library did not build: {e}")
+    if not native.available():
+        fail("the native library built but does not load")
+    print(f"native build (g++ {' '.join(native.CXX_FLAGS)}): {time.perf_counter() - t0:.1f} s, "
+          f"{lib.relative_to(root)}", flush=True)
+    res.update(cpu=cpu, compiler=native.compiler_version(), card=card)
+
+    # ---- b. config 3 at full width: batch 64 VGA, seeds 0-2 (bench.py:286-318)
+    B, H, W = 64, 480, 640
+    sets = [torch.from_numpy(video_sequence(B, H, W, seed=s)).to(dev) for s in (0, 1, 2)]
+    res["config3"] = {}
+    for diff in (Diffusivity.PM_G1, Diffusivity.WEICKERT):
+        cfg = AkazeConfig(diffusivity=diff)
+        extract_batch(sets[0], cfg, device=dev)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        ms, counts = [], []
+        for frames in sets:
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            feats = extract_batch(frames, cfg, device=dev)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+            kp = feats.keypoints
+            counts.append(int(kp.count().sum()))
+            if not (torch.isfinite(kp.x[kp.valid]).all() and torch.isfinite(kp.angle).all()):
+                fail(f"config 3 {diff.value}: non-finite keypoint output")
+            if feats.descriptors.shape != (B, cfg.max_keypoints, 16):
+                fail(f"config 3 {diff.value}: descriptor shape {tuple(feats.descriptors.shape)}")
+        launches = path_launches()
+        for name in ("base_stage", "fused_octave", "describe"):
+            if launches[name] <= 0:
+                fail(f"config 3 {diff.value}: kernel {name} was not launched")
+        if len(set(counts)) < 2:
+            fail(f"config 3 {diff.value}: distinct inputs gave identical keypoint counts")
+        fps = [B / (t / 1e3) for t in ms]
+        print(f"config 3 {diff.value}: extract_batch batch {B} VGA, passes (ms) {[round(t, 3) for t in ms]}, "
+              f"frames/s {[round(f, 1) for f in fps]} (mean {sum(fps) / len(fps):.1f}), keypoints/frame "
+              f"{sum(counts) / (B * len(sets)):.1f}; launches {launches} [{card}]", flush=True)
+
+        # Kernel 2 against its twin on one batch, each octave fed the plain chain's seed.
+        ss, _ = _statics(W, H, cfg)
+        groups = octave_groups(ss)
+        seed, modg = base_stage_plain(sets[0], float(cfg.base_scale_offset))
+        k = contrast_factor_from_modg(modg, cfg)
+        for oi, (l0, n, h, w) in enumerate(groups):
+            if oi:
+                k = k * cfg.contrast_octave_decay
+            argv = (seed, k, tuple(ss.specs[l0 : l0 + n]), diff, oi == 0, float(cfg.detector_threshold),
+                    oi + 1 < len(groups))
+            got, ref = fused_octave(*argv), fused_octave_plain(*argv)
+            for name, g, r in zip(("Lt", "Lx", "Ly", "score", "sub", "half"), got, ref):
+                if not ((g is None and r is None) or torch.equal(g, r)):
+                    fail(f"config 3 {diff.value}: kernel 2 octave {oi} {name} differs from its twin by up to "
+                         f"{ulp_gap(torch, g, r)} ULP (bit-equality required)")
+            seed = ref[5]
+        print(f"  kernel 2 ({diff.value}, kind {list(Diffusivity).index(diff)}): {len(groups)} octaves of batch "
+              f"{B} VGA bit-equal to fused_octave_plain (Lt, Lx, Ly, score, sub, half)", flush=True)
+
+        # Kernel 5 through extract_fn on one VGA frame, then level by level against its twin.
+        frame = sets[1][0]
+        reset_counts()
+        fk = extract_fn(frame, cfg)
+        torch.cuda.synchronize()
+        launches_b = path_launches()
+        for name in ("base_stage", "fused_level"):
+            if launches_b[name] <= 0:
+                fail(f"config 3 {diff.value}: extract_fn did not launch kernel {name}")
+        fp = extract_fn(frame, cfg, plain=True)
+        if not (torch.equal(fk.keypoints.valid, fp.keypoints.valid) and torch.equal(fk.keypoints.x, fp.keypoints.x)
+                and torch.equal(fk.keypoints.y, fp.keypoints.y) and torch.equal(fk.descriptors, fp.descriptors)):
+            fail(f"config 3 {diff.value}: extract_fn through the kernels differs from the plain twins")
+        seed5, modg5 = base_stage_plain(frame[None].contiguous(), float(cfg.base_scale_offset))
+        k5 = contrast_factor_from_modg(modg5, cfg)
+        for i, spec in enumerate(ss.specs):
+            if i > 0 and spec.octave > ss.specs[i - 1].octave:
+                seed5, k5 = half_size(seed5).contiguous(), k5 * cfg.contrast_octave_decay
+            got = fused_level_batched(seed5, k5, spec, diff, i == 0)
+            ref = fused_level_batched_plain(seed5, k5, spec, diff, i == 0)
+            for name, g, r in zip(("Lt", "Lx", "Ly", "Ldet"), got, ref):
+                if not torch.equal(g, r):
+                    fail(f"config 3 {diff.value}: kernel 5 level {i} {name} differs from its twin by up to "
+                         f"{ulp_gap(torch, g, r)} ULP (bit-equality required)")
+            seed5 = ref[0]
+        print(f"  kernel 5 ({diff.value}): extract_fn on one VGA frame, {int(fk.keypoints.count())} keypoints, equal "
+              f"to the plain path; {ss.num_levels} levels bit-equal to fused_level_batched_plain (Lt, Lx, Ly, Ldet); "
+              f"launches {launches_b}", flush=True)
+        res["config3"][diff.value] = {"ms": ms, "fps": fps, "fps_mean": sum(fps) / len(fps),
+                                      "keypoints_per_frame": sum(counts) / (B * len(sets)),
+                                      "launches": launches, "extract_fn_launches": launches_b}
+    del sets, seed, modg, got, ref, fk, fp
+    torch.cuda.empty_cache()
+
+    # ---- c. the live single-core C++ baseline (bench.py:45-64, :255-268)
+    pair = video_sequence(2, H, W, seed=1)
+    card_fps = {"pm_g2": (main_fps, main_best)}
+    for d in ("pm_g1", "weickert"):
+        card_fps[d] = (res["config3"][d]["fps_mean"], max(res["config3"][d]["fps"]))
+    res["baseline"] = {}
+    for d in ("pm_g2", "pm_g1", "weickert"):
+        sec = native.bench_pipeline_native(pair[0], pair[1], reps=3, diffusivity=d)
+        if not 0.0 < sec < 60.0:
+            fail(f"native baseline {d}: {sec} s per frame")
+        mean, best = card_fps[d]
+        res["baseline"][d] = {"s_per_frame": sec, "fps": 1.0 / sec, "card_fps_mean": mean, "card_fps_best": best,
+                              "ratio_mean": mean * sec, "ratio_best": best * sec}
+        print(f"native single-core baseline {d}: {1.0 / sec:.2f} frames/s (detect + describe + match, "
+              f"video_sequence(2, 480, 640, seed=1), reps 3) on {cpu}; the card "
+              f"({'phase 3 extract + match, batch 128' if d == 'pm_g2' else 'phase 9b extract, batch 64'}) mean "
+              f"{mean:.1f}, best {best:.1f} frames/s: {mean * sec:.1f}x ({best * sec:.1f}x best) [{card}]", flush=True)
+
+    # ---- d. the card against the golden model's snapshots, per scene class
+    with np.load(root / "tests" / "data" / "golden_scene_snapshots.npz") as z:
+        shape, seed_s = tuple(int(v) for v in z["image_shape"]), int(z["seed"])
+        snaps = {k: z[k] for k in z.files}
+    res["scenes"] = {}
+    for name in sorted(SCENE_CLASSES):
+        img = SCENE_CLASSES[name](*shape, seed=seed_s)
+        reset_counts()
+        got = interop.features_to_numpy(extract(img, AkazeConfig(), device=dev))
+        launches = path_launches()
+        if min(launches[n] for n in ("base_stage", "fused_octave", "describe")) <= 0:
+            fail(f"scene {name}: the extract did not launch kernels 1-3")
+        ref = {"x": snaps[f"{name}_x"], "y": snaps[f"{name}_y"],
+               "descriptors": interop.pack_descriptor_bytes(snaps[f"{name}_descriptors"])}
+        g = oracle_gates(np, got, ref)
+        res["scenes"][name] = g
+        print(f"scene {name} ({shape[1]}x{shape[0]}, seed {seed_s}): {g['n']} keypoints on the card, {g['n_ref']} in "
+              f"the golden snapshot; within 0.5 px {g['got_to_ref']:.3f} / {g['ref_to_got']:.3f}, median "
+              f"{g['median_bits']:.1f} bits", flush=True)
+        if not (abs(g["n"] - g["n_ref"]) <= max(2, 0.1 * g["n_ref"]) and
+                (g["n_ref"] == 0 or (g["got_to_ref"] >= 0.9 and g["ref_to_got"] >= 0.9 and g["median_bits"] <= 4))):
+            fail(f"scene {name}: the card misses the snapshot gates (count within max(2, 10 %), >= 90 % within "
+                 f"0.5 px both ways, median <= 4 bits)")
+
+    # The golden copy on this machine's NumPy: the textured snapshot exactly,
+    # on the image it was made from (numpy's float32 sin / exp differ by a
+    # few ULP between numpy versions, so the generated scene may differ).
+    with np.load(root / "tests" / "data" / "golden_snapshot.npz") as z:
+        snap = {k: z[k] for k in z.files}
+    with np.load(root / "tests" / "torch_data" / "golden_snapshot_image.npz") as z:
+        stored = z["image"]
+    shape_g, seed_g = tuple(int(v) for v in snap["image_shape"]), int(snap["seed"])
+    t0 = time.perf_counter()
+    gres = golden.extract(stored)
+    g = interop.golden_to_numpy(gres)
+    keys = ("x", "y", "response", "size", "octave", "class_id", "angle")
+    exact = (len(g["x"]) == len(snap["x"]) and all(np.array_equal(g[k], snap[k]) for k in keys)
+             and np.array_equal(gres.descriptors, snap["descriptors"]))
+    here = textured_scene(*shape_g, seed=seed_g)
+    ulps = int(np.abs(here.view(np.int32).astype(np.int64) - stored.view(np.int32)).max())
+    ghere = interop.golden_to_numpy(golden.extract(here))
+    same_here = len(ghere["x"]) == len(snap["x"]) and all(np.array_equal(ghere[k], snap[k]) for k in keys)
+    print(f"golden copy (numpy {np.__version__}) on the snapshot's image ({shape_g[1]}x{shape_g[0]}, seed {seed_g}): "
+          f"{len(g['x'])} keypoints, {'equal to' if exact else 'DIFFERENT from'} golden_snapshot.npz in every field "
+          f"({time.perf_counter() - t0:.1f} s); the scene generated here is {int((here != stored).sum())} px / up to "
+          f"{ulps} ULP from that image, and its golden output {'equals' if same_here else 'differs from'} the "
+          f"snapshot", flush=True)
+    if not exact:
+        fail("the golden copy differs from tests/data/golden_snapshot.npz on its image")
+    res["golden"] = {"exact": exact, "generated_scene_px": int((here != stored).sum()), "generated_scene_ulps": ulps,
+                     "generated_scene_exact": same_here}
+
+    # ---- e. the card against the native oracle at full width
+    img = textured_scene(H, W, seed=0)
+    res["native"] = {}
+    for diff in (Diffusivity.PM_G2, Diffusivity.PM_G1, Diffusivity.WEICKERT):
+        cfg = AkazeConfig(diffusivity=diff)
+        nat = interop.native_to_numpy(*native.extract_native(img, cfg))
+        reset_counts()
+        got = interop.features_to_numpy(extract(img, cfg, device=dev))
+        path_launches()
+        g = oracle_gates(np, got, nat)
+        res["native"][diff.value] = g
+        print(f"native extract {diff.value} (textured_scene(480, 640, seed=0)): {g['n']} keypoints on the card, "
+              f"{g['n_ref']} native; card -> native within 0.5 px {g['got_to_ref']:.3f} (gate 0.9), median "
+              f"{g['median_bits']:.1f} bits (gate 4); native -> card {g['ref_to_got']:.3f} (printed: the "
+              f"{cfg.per_level_candidates}-candidate cap per level drops some)", flush=True)
+        if not (g["got_to_ref"] >= 0.9 and g["median_bits"] <= 4):
+            fail(f"native extract {diff.value}: the card misses the gates against the native oracle")
+
+    frames = video_sequence(2, H, W, seed=1)
+    reset_counts()
+    feats = extract_batch(frames, AkazeConfig(), device=dev)
+    arr = interop.features_to_numpy(feats)
+    ia, ib = np.nonzero(arr["valid"][0])[0], np.nonzero(arr["valid"][1])[0]
+    res["match"] = {}
+    for mutual in (True, False):
+        mcfg = MatchConfig(mutual=mutual)
+        m = match_features(feats.index(0), feats.index(1), mcfg, device=dev)
+        acc, idx, dist = (x.cpu().numpy() for x in (m.accepted, m.idx_b, m.distance))
+        n_idx, n_dist, n_acc = native.match_hamming_native(
+            arr["descriptors"][0][ia], arr["descriptors"][1][ib], ratio=mcfg.ratio, mutual=mcfg.mutual,
+            max_distance=mcfg.max_distance)
+        want = {(int(ia[i]), int(ib[n_idx[i]])) for i in np.nonzero(n_acc)[0]}
+        have = {(int(i), int(idx[i])) for i in np.nonzero(acc)[0]}
+        same_dist = np.array_equal(dist[ia], n_dist)
+        same_idx = np.array_equal(idx[ia], ib[n_idx])
+        res["match"][f"mutual={mutual}"] = {"accepted": len(have), "native_accepted": len(want),
+                                            "pairs_equal": have == want, "distances_equal": bool(same_dist)}
+        print(f"match (kernel 4) against the native matcher, VGA pair video_sequence(2, 480, 640, seed=1), "
+              f"mutual={mutual}: {len(have)} / {len(want)} accepted, pairs {'equal' if have == want else 'DIFFERENT'}, "
+              f"best distances of all {len(ia)} rows {'equal' if same_dist else 'DIFFERENT'}, best indices "
+              f"{'equal' if same_idx else 'different'}", flush=True)
+        if have != want or not same_dist:
+            fail(f"kernel 4's matcher and the native matcher disagree (mutual={mutual}): "
+                 f"{len(have - want)} pairs only on the card, {len(want - have)} only native")
+    launches = path_launches()
+    if launches["match"] != 2:
+        fail(f"the native comparison launched kernel 4 {launches['match']} times, expected 2")
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"kernels launched on phase 9's paths: {res['launches']}", flush=True)
+    print(f"phase 9: {res['phase_s']:.1f} s", flush=True)
+    out["oracles"] = res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=128)
@@ -1745,6 +2058,7 @@ def main() -> int:
         print(f"passes (ms): {[round(t, 3) for t in pass_ms]}  frames/s: {[round(f, 1) for f in fps]}",
               flush=True)
         print(f"frames/s mean {sum(fps) / len(fps):.1f}, best {max(fps):.1f}", flush=True)
+        fps_of[title] = (sum(fps) / len(fps), max(fps))
         kc = torch.stack(kp_counts).double()
         mc = torch.stack(match_counts).double()
         print(f"keypoints/frame mean {kc.mean().item():.1f}, accepted matches/pair mean "
@@ -1758,6 +2072,7 @@ def main() -> int:
         return counts
 
     n_batches = len(frame_sets)
+    fps_of = {}
     launches = run_batches(config, "main path")
     expect = {"base_stage": 1, "fused_octave": len(groups), "describe": 1, "match": 1}
     for name, per in expect.items():
@@ -1934,6 +2249,11 @@ def main() -> int:
     phase_parallel(torch, np, dev, kept, parallel)
     print(json.dumps(parallel), flush=True)
 
+    # ------------------------------------------------------------ phase 9
+    oracles = {}
+    phase_oracles(torch, np, dev, root, card, reset_counts, *fps_of["main path"], oracles)
+    print(json.dumps(oracles), flush=True)
+
     # The level chain's launch structure: __global__ launches and device
     # time under the profiler (phase 2's rows).
     print(f"level chain: fused_octave per batch-{B} VGA {results['fused_octave']['global_launches']:.0f} "
@@ -1951,6 +2271,7 @@ def main() -> int:
             "wrapper_ms": r["wrapper_ms"], "global_launches": r["global_launches"],
             "sfm_cli_launches": sfm_launches.get(name, 0),
             "parallel_launches": parallel["parallel"]["launches"].get(name, 0),
+            "oracle_launches": oracles["oracles"]["launches"].get(name, 0),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)  # nvidia-smi's name and power limit, as it prints them

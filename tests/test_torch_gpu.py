@@ -585,3 +585,77 @@ def test_two_ranks_share_the_card_for_dp_extract(cuda, tmp_path):
     for k, v in want.items():
         np.testing.assert_array_equal(got[k], v, err_msg=k)
     assert int(got["total_valid"]) == int(want["valid"].sum()) > 0
+
+
+# ------------------------------------------------------------------ oracles and conductivity variants
+
+
+@pytest.mark.parametrize("diff", [Diffusivity.PM_G1, Diffusivity.WEICKERT])
+@pytest.mark.parametrize("size", SIZES)
+def test_conductivity_variants_bit_equal(cuda, size, diff):
+    """Kernels 2 and 5 with conductivity kinds 0 (g1) and 2 (Weickert) bit
+    for bit against their twins: the twin takes Weickert's exponent as a
+    true division, as the kernel does (torch's `scalar / tensor` is a
+    reciprocal and a product, which rounds otherwise)."""
+    ss, _ = _statics(size[1], size[0], AkazeConfig(diffusivity=diff))
+    args, outs = _plain_octaves(_frames(cuda, size=size), ss)
+    for a, ref in zip(args, outs):
+        got = fused_octave(*a)
+        for g, r in zip(got, ref):
+            assert (g is None and r is None) or torch.equal(g, r)
+    cfg = ss.config
+    seed, modg = base_stage_plain(_frames(cuda, size=size), cfg.base_scale_offset)
+    k = contrast_factor_from_modg(modg, cfg)
+    for i, spec in enumerate(ss.specs):
+        if i > 0 and spec.octave > ss.specs[i - 1].octave:
+            seed, k = half_size(seed).contiguous(), k * cfg.contrast_octave_decay
+        got = fused_level_batched(seed, k, spec, diff, i == 0)
+        ref = fused_level_batched_plain(seed, k, spec, diff, i == 0)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+        seed = ref[0]
+
+
+def test_scene_class_on_card_holds_to_snapshot(cuda):
+    """The repetitive grid (the densest class, 243 golden keypoints) through
+    the kernels against the golden scene snapshot, under
+    tests/test_scene_regression.py's gates."""
+    from pathlib import Path
+
+    from akaze_tpu_torch.frontend.pipeline import extract
+    from akaze_tpu_torch.utils.synthetic import SCENE_CLASSES
+
+    with np.load(Path(__file__).parent / "data" / "golden_scene_snapshots.npz") as z:
+        shape, seed = tuple(int(v) for v in z["image_shape"]), int(z["seed"])
+        sx, sy, sd = z["repetitive_grid_x"], z["repetitive_grid_y"], z["repetitive_grid_descriptors"]
+    got = interop.features_to_numpy(extract(SCENE_CLASSES["repetitive_grid"](*shape, seed=seed), device=cuda))
+    v = got["valid"]
+    assert abs(int(v.sum()) - len(sx)) <= max(2, 0.1 * len(sx))
+    d2 = (got["x"][v][:, None] - sx[None, :]) ** 2 + (got["y"][v][:, None] - sy[None, :]) ** 2
+    dmin = np.sqrt(d2.min(1))
+    assert (dmin < 0.5).mean() >= 0.9 and (np.sqrt(d2.min(0)) < 0.5).mean() >= 0.9
+    ok = dmin < 0.5
+    ham = np.bitwise_count(interop.pack_descriptor_bytes(sd)[d2.argmin(1)[ok]] ^ got["descriptors"][v][ok]).sum(1)
+    assert np.median(ham) <= 4
+
+
+@pytest.mark.parametrize("mutual", [True, False])
+def test_match_kernel_equals_native_matcher(cuda, mutual):
+    """Kernel 4's matcher (`match_fn`) and the native C++ matcher accept the
+    same pairs at the same distances on two consecutive frames' valid
+    descriptors."""
+    from akaze_tpu_torch import native
+
+    if not native.available():
+        pytest.skip("g++ unavailable: native library not built")
+    feats = extract_batch(_frames(cuda, n=2, seed=8), device=cuda)
+    cfg = MatchConfig(mutual=mutual)
+    m = match_features(feats.index(0), feats.index(1), cfg, device=cuda)
+    arr = interop.features_to_numpy(feats)
+    ia, ib = np.nonzero(arr["valid"][0])[0], np.nonzero(arr["valid"][1])[0]
+    idx, dist, acc = native.match_hamming_native(arr["descriptors"][0][ia], arr["descriptors"][1][ib],
+                                                 ratio=cfg.ratio, mutual=cfg.mutual, max_distance=cfg.max_distance)
+    got_acc, got_idx, got_dist = (x.cpu().numpy() for x in (m.accepted, m.idx_b, m.distance))
+    want = {(int(ia[i]), int(ib[idx[i]])) for i in np.nonzero(acc)[0]}
+    assert {(int(i), int(got_idx[i])) for i in np.nonzero(got_acc)[0]} == want and len(want) > 20
+    np.testing.assert_array_equal(got_dist[ia], dist)
