@@ -240,8 +240,10 @@ __device__ __forceinline__ void describe_slot(const DescArgs& a, const TabView& 
   __syncthreads();
 
   // Warp 0: each window's range sums added in range order, then the first
-  // max of |sum|^2 (lanes scan windows lane, lane + 32, ... in order; the
-  // shuffle tree keeps the lower window on ties).
+  // max of |sum|^2 as torch.argmax and jnp.argmax take it: a NaN counts as
+  // the largest value, so the first NaN window wins where there is one
+  // (lanes scan windows lane, lane + 32, ... in order; the shuffle tree
+  // keeps the lower window on ties).
   float angle = 0.f;
   if (warp == 0) {
     float best_n = -1.f, best_x = 0.f, best_y = 0.f;
@@ -253,7 +255,7 @@ __device__ __forceinline__ void describe_slot(const DescArgs& a, const TabView& 
         sy = sy + sm.a.o.part[r][wi].y;
       }
       const float nrm = sx * sx + sy * sy;
-      if (nrm > best_n) {
+      if (nrm != nrm ? best_n == best_n : nrm > best_n) {
         best_n = nrm;
         best_i = wi;
         best_x = sx;
@@ -265,7 +267,8 @@ __device__ __forceinline__ void describe_slot(const DescArgs& a, const TabView& 
       const int oi = __shfl_xor_sync(FULL, best_i, o);
       const float ox = __shfl_xor_sync(FULL, best_x, o);
       const float oy = __shfl_xor_sync(FULL, best_y, o);
-      if (on > best_n || (on == best_n && oi < best_i)) {
+      const bool o_nan = on != on, b_nan = best_n != best_n;
+      if (o_nan ? (!b_nan || oi < best_i) : (!b_nan && (on > best_n || (on == best_n && oi < best_i)))) {
         best_n = on;
         best_i = oi;
         best_x = ox;

@@ -341,6 +341,13 @@ __device__ __forceinline__ void sweep_run(const float* __restrict__ cur, const f
   }
 }
 
+// The larger of a and b, NaN where either is NaN, as torch.maximum and
+// jnp.maximum take it (fmaxf alone drops a NaN operand, so a pixel beside a
+// NaN region could pass as a local maximum).
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+
 // Strict 3x3-max candidate score (-3e38 elsewhere) and the packed 2-variable
 // sub-pixel fit: qx * 65536 + qy with q = rint((clip(o, -1, 1) + 1) * 16000),
 // or -1 for a rejected fit (kernels/fed_pallas.py pack_sub), of Ldet v and
@@ -348,10 +355,10 @@ __device__ __forceinline__ void sweep_run(const float* __restrict__ cur, const f
 __device__ __forceinline__ void score_px(float v, float n_e, float n_w, float n_s, float n_n,
                                          float n_se, float n_nw, float n_ne, float n_sw,
                                          bool interior, float thr, float* score, int* sub) {
-  float nmax = fmaxf(n_e, n_w);
-  nmax = fmaxf(nmax, fmaxf(n_s, n_n));
-  nmax = fmaxf(nmax, fmaxf(n_se, n_nw));
-  nmax = fmaxf(nmax, fmaxf(n_ne, n_sw));
+  float nmax = nan_max(n_e, n_w);
+  nmax = nan_max(nmax, nan_max(n_s, n_n));
+  nmax = nan_max(nmax, nan_max(n_se, n_nw));
+  nmax = nan_max(nmax, nan_max(n_ne, n_sw));
   const bool cand = interior && v > thr && v > nmax;
   *score = cand ? v : -3.0e38f;
 

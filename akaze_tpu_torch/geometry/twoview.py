@@ -193,9 +193,20 @@ def _refit(E, inl, cnt, x1, x2, mask, config: RansacConfig):
     does not lose inliers: ties are accepted, since with every match an
     inlier the refit over all of them still beats any 8-point solve, and a
     refit that loses inliers (a drift onto a spurious nullspace direction)
-    is rejected.  Returns the refit (E, inliers, counts)."""
+    is rejected.
+
+    A problem with a non-finite correspondence (any row of the design
+    matrix, masked or not) keeps its beam as it is: the reference's
+    weighted matrix carries NaN x 0 = NaN there, its refit scores no
+    inliers, and every round is rejected.  The non-finite entries are
+    zeroed before the QR, which leaves every finite input bit for bit as
+    it was, so the CPU's SVD does not raise on a NaN factor.  Returns the
+    refit (E, inliers, counts)."""
     P, M = cnt.shape
     a = (x2[..., :, None] * x1[..., None, :]).reshape(*x1.shape[:-1], 9)  # (P, N, 9)
+    finite = torch.isfinite(a)
+    poisoned = ~finite.all(dim=-1).all(dim=-1)  # (P,)
+    a = torch.where(finite, a, 0.0)
     for _ in range(3):
         w = inl.to(torch.float32)
         with span("linalg", a.device):
@@ -205,10 +216,10 @@ def _refit(E, inl, cnt, x1, x2, mask, config: RansacConfig):
         E_new = u[..., :, :2] @ vt[..., :2, :]  # u diag(1, 1, 0) vt
         inl_new = _inliers(E_new, x1, x2, mask, config)
         cnt_new = inl_new.sum(-1, dtype=torch.int32)
-        better = cnt_new >= cnt
+        better = (cnt_new >= cnt) & ~poisoned[:, None]
         E = torch.where(better[..., None, None], E_new, E)
         inl = torch.where(better[..., None], inl_new, inl)
-        cnt = torch.maximum(cnt_new, cnt)
+        cnt = torch.where(better, cnt_new, cnt)
     return E, inl, cnt
 
 
@@ -264,9 +275,15 @@ def _recover_pose(E: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor, inliers: 
     """Decompose E (..., 3, 3) into its 4 (R, t) candidates and keep the one
     with the most inliers in front of both cameras (the first on ties).
     x1, x2 (..., N, 3) and inliers (..., N) broadcast against E's leading
-    axes.  Returns (R, t, cheirality count)."""
+    axes.  Returns (R, t, cheirality count).
+
+    A non-finite E (an 8-point sample that held a non-finite
+    correspondence) gives a NaN pose with count 0, as the reference's SVD
+    does; it is decomposed as a zero matrix, since the CPU's SVD raises on
+    NaN."""
+    finite = torch.isfinite(E).all(-1).all(-1)
     with span("linalg", E.device):
-        u, _, vt = torch.linalg.svd(E)
+        u, _, vt = torch.linalg.svd(torch.where(finite[..., None, None], E, 0.0))
         # Proper rotations: flip the sign of a factor whose determinant is < 0.
         u = u * torch.sign(torch.linalg.det(u))[..., None, None]
         vt = vt * torch.sign(torch.linalg.det(vt))[..., None, None]
@@ -281,10 +298,12 @@ def _recover_pose(E: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor, inliers: 
     z1 = pts[..., 2]
     z2 = (Rs[..., 2, None, :] * pts).sum(-1) + ts[..., 2, None]
     good = (z1 > 0) & (z2 > 0) & inliers[..., None, :]
-    counts = good.sum(-1, dtype=torch.int32)  # (..., 4)
+    counts = torch.where(finite[..., None], good.sum(-1, dtype=torch.int32), 0)  # (..., 4)
     best = torch.argmax(counts, dim=-1)
     R = torch.take_along_dim(Rs, best[..., None, None, None], dim=-3)[..., 0, :, :]
     t = torch.take_along_dim(ts, best[..., None, None], dim=-2)[..., 0, :]
+    R = torch.where(finite[..., None, None], R, torch.nan)
+    t = torch.where(finite[..., None], t, torch.nan)
     return R, t, torch.take_along_dim(counts, best[..., None], dim=-1)[..., 0]
 
 

@@ -116,11 +116,25 @@
    (card -> native >= 90 % within 0.5 px, median <= 4 bits), and kernel 4's
    matcher against the native matcher on a VGA pair (the same accepted
    pairs, the same distances).
+10. Degenerate inputs and the benchmark entry point.  a: the cases of
+   tests/test_degenerate_inputs.py (a constant image, a 38x36 frame, the
+   1241x376 KITTI shape, a uint8 frame, a NaN block; images stored in
+   tests/torch_data/degenerate_images.npz) through extract_batch and match
+   (kernels 1-4) and through the plain twins on the card, equal slot for
+   slot, with the keypoint counts the JAX package finds on the CPU; empty
+   descriptor sets into match in three orders (0 matches); kernel 2 on a
+   seed with a NaN block, equal to its twin NaN for NaN.  b: two-view
+   RANSAC on correspondences with NaN rows on the card against the CPU on
+   JAX's draws (the same inliers, R within 0.05 deg, t within 0.2 deg).
+   c: `bench_cuda.py --only headline,two_view` as a subprocess; every line
+   must carry a finite positive value, and the baseline must be the native
+   one where g++ is present.
 
 Prints a JSON line of the sequence and two-view numbers, one of the SfM
-numbers, one of the parallel paths' numbers, one of phase 9's, a JSON line
-of per-kernel numbers (with each kernel's launches on phase 8's paths, all
-ranks, and on phase 9's), the card line, and last
+numbers, one of the parallel paths' numbers, one of phase 9's, one of
+phase 10's, a JSON line of per-kernel numbers (with each kernel's launches
+on phase 8's paths, all ranks, on phase 9's and on phase 10a's), the card
+line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
 GPU is present, when the package is missing, or when any check fails.
 """
@@ -131,6 +145,7 @@ import argparse
 import json
 import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -1662,6 +1677,228 @@ def phase_oracles(torch, np, dev, root: Path, card: str, reset_counts, main_fps:
     out["oracles"] = res
 
 
+#: Phase 10a's cases and the keypoints the JAX package finds on each on the
+#: CPU (tests/test_torch_degenerate.py holds both packages to these numbers
+#: on the same images): name -> (image, small config).  The images are the
+#: scenes of tests/test_degenerate_inputs.py, read from
+#: tests/torch_data/degenerate_images.npz (numpy's float32 sin and exp differ
+#: by a few ULP between numpy versions, so a scene generated elsewhere may
+#: differ in a few pixels).
+DEGENERATE_COUNTS = {"constant": 0, "sub_40px": 0, "kitti_1241x376": 458, "uint8": 12, "nan_block": 10}
+#: tests/test_degenerate_inputs.py's small config.
+DEGENERATE_SMALL = {"max_keypoints": 128, "per_level_candidates": 32}
+
+
+def degenerate_inputs(np, root: Path) -> dict:
+    """Phase 10a's inputs: name -> (image, whether the small config applies)."""
+    with np.load(root / "tests" / "torch_data" / "degenerate_images.npz") as z:
+        scene, sub40, kitti = z["scene_96x128"], z["scene_36x38"], z["scene_376x1241"]
+    nan = scene.copy()
+    nan[40:44, 60:64] = np.nan
+    return {"constant": (np.full((96, 128), 0.5, np.float32), True), "sub_40px": (sub40, True),
+            "kitti_1241x376": (kitti, False), "uint8": ((scene * 255).astype(np.uint8), True),
+            "nan_block": (nan, True)}
+
+
+def nan_pair_inputs(np, n: int = 64, seed: int = 0):
+    """Phase 10b's correspondences: n points of a random scene before and
+    after a 0.3 x-translation (R = I, t = (-1, 0, 0)), normalized (n, 3)
+    x1, x2 and an all-true mask."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform([-2, -2, 4], [2, 2, 10], (n, 3))
+    p2 = pts + np.array([-0.3, 0.0, 0.0])
+    return (pts / pts[:, 2:3]).astype(np.float32), (p2 / p2[:, 2:3]).astype(np.float32), np.ones(n, bool)
+
+
+#: Phase 10b's cases: (rows of x1 set to NaN, whether the mask keeps them,
+#: the inliers the JAX package finds on JAX's PRNGKey(0) draws; 0 comes
+#: with a NaN pose, as every hypothesis held a NaN row).
+NAN_PAIR_CASES = {"one_row": (slice(5, 6), True, 63), "one_row_masked_out": (slice(5, 6), False, 63),
+                  "every_second_row": (slice(None, None, 2), True, 0)}
+
+
+def phase_degenerate(torch, np, dev, root: Path, reset_counts, out: dict) -> None:
+    """Phase 10: degenerate inputs through kernels 1-4 against the plain
+    twins on the card, with the JAX package's counts (a); the NaN-pair
+    RANSAC on the card against the CPU (b); bench_cuda.py's headline and
+    two-view sections run as a user runs them (c).  `out["degenerate"]`
+    gets the numbers and each kernel's launches on 10a's paths."""
+    from akaze_tpu_torch.core.config import AkazeConfig, MatchConfig, RansacConfig
+    from akaze_tpu_torch.frontend.pipeline import _statics, extract_batch, extract_batch_fn
+    from akaze_tpu_torch.frontend.scale_space import contrast_factor_from_modg
+    from akaze_tpu_torch.geometry.twoview import estimate_relative_pose
+    from akaze_tpu_torch.interop import jax_uniform
+    from akaze_tpu_torch.kernels import _build
+    from akaze_tpu_torch.kernels.fed import base_stage_plain, fused_octave, fused_octave_plain, octave_groups
+    from akaze_tpu_torch.matching.hamming import match, match_fn
+    from akaze_tpu_torch.utils.synthetic import video_sequence
+
+    t_phase = time.perf_counter()
+    res = {"launches": dict.fromkeys(_build.launches, 0), "extract": {}, "match": {}}
+
+    def path_launches() -> dict:
+        got = dict(_build.launches)
+        for name, n in got.items():
+            res["launches"][name] += n
+        return got
+
+    def same_matches(m, p) -> bool:
+        return all(torch.equal(getattr(m, k), getattr(p, k)) for k in ("idx_b", "distance", "accepted"))
+
+    # ---- a. degenerate inputs: kernels 1-4 against the plain twins
+    print("\n== phase 10a: degenerate inputs through kernels 1-4 and through the plain twins, on the card",
+          flush=True)
+    mcfg = MatchConfig()
+    feats_of = {}
+    for name, (img, small) in degenerate_inputs(np, root).items():
+        cfg = AkazeConfig(**DEGENERATE_SMALL) if small else AkazeConfig()
+        reset_counts()
+        got = extract_batch(img[None], cfg, device=dev)
+        kp, d = got.keypoints, got.descriptors
+        m = match(d, kp.valid, d, kp.valid, mcfg, device=dev)  # the frame against itself
+        torch.cuda.synchronize()
+        launches = path_launches()
+        ref = extract_batch_fn(torch.from_numpy(img[None]).to(dev), cfg, plain=True)
+        mp = match_fn(ref.descriptors, ref.keypoints.valid, ref.descriptors, ref.keypoints.valid, mcfg, plain=True)
+        fields = [f for f in ("valid", "x", "y", "response", "size", "angle", "octave", "class_id")
+                  if not torch.equal(getattr(kp, f), getattr(ref.keypoints, f))]
+        if not torch.equal(d, ref.descriptors):
+            fields.append("descriptors")
+        if not same_matches(m, mp):
+            fields.append("matches")
+        v = kp.valid[0]
+        n = int(v.sum())
+        h, w = img.shape
+        finite = all(bool(torch.isfinite(getattr(kp, f)[0][v]).all()) for f in ("x", "y", "response", "size", "angle"))
+        inside = bool(((kp.x[0][v] >= 0) & (kp.x[0][v] < w) & (kp.y[0][v] >= 0) & (kp.y[0][v] < h)).all())
+        res["extract"][name] = {"shape": [h, w], "keypoints": n, "jax_keypoints": DEGENERATE_COUNTS[name],
+                                "plain_keypoints": int(ref.keypoints.valid.sum()), "fields_differing": fields,
+                                "finite": finite, "inside": inside, "self_matches": int(m.count().sum()),
+                                "launches": launches}
+        print(f"{name} ({w}x{h}{', uint8' if img.dtype == np.uint8 else ''}): {n} keypoints through the kernels, "
+              f"{int(ref.keypoints.valid.sum())} through the twins, {DEGENERATE_COUNTS[name]} in the JAX package; "
+              f"slot for slot {'equal' if not fields else 'DIFFERENT in ' + ', '.join(fields)}; finite {finite}, "
+              f"inside the frame {inside}; self-matches {int(m.count().sum())}; launches {launches}", flush=True)
+        if fields:
+            fail(f"degenerate {name}: the kernels differ from the plain twins in {', '.join(fields)}")
+        if n != DEGENERATE_COUNTS[name] or not (finite and inside):
+            fail(f"degenerate {name}: {n} keypoints (the JAX package finds {DEGENERATE_COUNTS[name]}), finite "
+                 f"{finite}, inside {inside}")
+        feats_of[name] = got
+    # Empty descriptor sets into kernel 4, in three orders.
+    full = feats_of["uint8"]
+    k = DEGENERATE_SMALL["max_keypoints"]
+    empty = (torch.zeros((1, k, 16), dtype=torch.int32, device=dev), torch.zeros((1, k), dtype=torch.bool, device=dev))
+    sets = {"empty": empty, "full": (full.descriptors, full.keypoints.valid)}
+    reset_counts()
+    for a, b in (("empty", "full"), ("full", "empty"), ("empty", "empty")):
+        m = match(*sets[a], *sets[b], mcfg, device=dev)
+        mp = match_fn(*sets[a], *sets[b], mcfg, plain=True)
+        n = int(m.count().sum())
+        res["match"][f"{a}_{b}"] = {"accepted": n, "equal_to_plain": same_matches(m, mp)}
+        print(f"match {a} against {b}: {n} accepted, {'equal to' if same_matches(m, mp) else 'DIFFERENT from'} "
+              f"the plain twin", flush=True)
+        if n != 0 or not same_matches(m, mp):
+            fail(f"match {a} against {b}: {n} accepted (0 expected), or the kernel differs from its twin")
+    launches = path_launches()
+    if launches["match"] != 3:
+        fail(f"the empty-set matches launched kernel 4 {launches['match']} times, expected 3")
+    for kname in ("base_stage", "fused_octave", "describe", "match"):
+        if res["launches"][kname] <= 0:
+            fail(f"phase 10a did not launch kernel {kname}")
+    # Kernel 2 on a seed with a NaN block and the clean frames' contrast
+    # factor, so that the NaN region grows level by level and pixels beside
+    # it meet NaN neighbours at every level: fields equal, NaN for NaN.
+    imgs = torch.from_numpy(video_sequence(4, 240, 320, seed=4)).to(dev)
+    ss, _ = _statics(320, 240, AkazeConfig())
+    cfg = ss.config
+    k = contrast_factor_from_modg(base_stage_plain(imgs, cfg.base_scale_offset)[1], cfg)
+    imgs[1, 100:104, 150:154] = float("nan")
+    seed, _ = base_stage_plain(imgs, cfg.base_scale_offset)
+    groups, n_nan, n_cand = octave_groups(ss), 0, 0
+    for oi, (l0, n, _, _) in enumerate(groups):
+        if oi:
+            k = k * cfg.contrast_octave_decay
+        argv = (seed, k, tuple(ss.specs[l0 : l0 + n]), cfg.diffusivity, oi == 0, float(cfg.detector_threshold),
+                oi + 1 < len(groups))
+        got, ref = fused_octave(*argv), fused_octave_plain(*argv)
+        for fname, g, r in zip(("Lt", "Lx", "Ly", "score", "sub", "half"), got, ref):
+            n_diff = 0 if g is None and r is None else int((~((g == r) | (torch.isnan(g) & torch.isnan(r)))).sum())
+            if n_diff:
+                fail(f"kernel 2 on a NaN seed: octave {oi} {fname} differs from its twin at {n_diff} pixels")
+        n_nan += int(torch.isnan(ref[0]).sum())
+        n_cand += int((ref[3] > -1e38).sum())
+        seed = ref[5]
+    print(f"kernel 2 on 4 frames of 320x240 with a 4x4 NaN block in frame 1: {len(groups)} octaves equal to "
+          f"fused_octave_plain NaN for NaN (Lt, Lx, Ly, score, sub, half); {n_nan} NaN pixels of Lt, {n_cand} "
+          f"candidates", flush=True)
+    res["kernel2_nan_seed"] = {"nan_px": n_nan, "candidates": n_cand}
+    del feats_of, full, sets, imgs, seed, got, ref
+    torch.cuda.empty_cache()
+
+    # ---- b. the NaN pair: the card's RANSAC against the CPU's, on JAX's draws
+    print("\n== phase 10b: two-view RANSAC with NaN correspondences, the card against the CPU "
+          "(RansacConfig(num_iterations=64), JAX's PRNGKey(0) draws)", flush=True)
+    rcfg = RansacConfig(num_iterations=64)
+    res["nan_pair"] = {}
+    for name, (rows, keep, want) in NAN_PAIR_CASES.items():
+        x1, x2, mask = nan_pair_inputs(np)
+        x1[rows] = np.nan
+        mask[rows] = keep
+        draws = jax_uniform(rcfg.seed, (rcfg.num_iterations, len(mask)))
+        card = estimate_relative_pose(x1, x2, mask, rcfg, device=dev, sample_scores=draws)
+        cpu = estimate_relative_pose(x1, x2, mask, rcfg, device="cpu", sample_scores=draws)
+        n_card, n_cpu = int(card.num_inliers), int(cpu.num_inliers)
+        R_c, t_c, R_h, t_h = (x.cpu().numpy() for x in (card.R, card.t, cpu.R, cpu.t))
+        if want == 0:
+            ok = n_card == n_cpu == 0 and np.isnan(t_c).all() and np.isnan(t_h).all()
+            d_rot = d_t = None
+            detail = f"pose NaN on the card {bool(np.isnan(t_c).all())}, on the CPU {bool(np.isnan(t_h).all())}"
+        else:
+            d_rot, d_t = rot_deg(np, R_c, R_h), dir_deg(np, t_c, t_h)
+            ok = n_card == n_cpu == want and d_rot <= 0.05 and d_t <= 0.2
+            detail = f"R {d_rot:.5f} deg, t-direction {d_t:.5f} deg apart; t on the card {np.round(t_c, 6).tolist()}"
+        res["nan_pair"][name] = {"inliers_card": n_card, "inliers_cpu": n_cpu, "jax_inliers": want,
+                                 "rot_deg": d_rot, "tdir_deg": d_t, "ok": bool(ok)}
+        print(f"{name}: inliers {n_card} on the card, {n_cpu} on the CPU, {want} in the JAX package; {detail}",
+              flush=True)
+        if not ok:
+            fail(f"NaN pair {name}: the card's pose differs from the CPU's or from the JAX package's count")
+
+    # ---- c. bench_cuda.py as a user runs it
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, str(root / "bench_cuda.py"), "--only", "headline,two_view"]
+    print(f"\n== phase 10c: {' '.join(cmd[1:])}", flush=True)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+    except subprocess.TimeoutExpired:
+        fail("bench_cuda.py did not finish within 600 s")
+    wall = time.perf_counter() - t0
+    lines = {}
+    for line in proc.stdout.splitlines():
+        print(f"  {line}", flush=True)
+        if line.startswith("{"):
+            rec = json.loads(line)
+            lines[rec["metric"]] = rec
+    if proc.returncode != 0:
+        fail(f"bench_cuda.py exited {proc.returncode} (the integrity guard raises): {proc.stderr[-2000:]}")
+    want = ("baseline_cpu_single_core_fps", "akaze_vga_detect_describe_match_fps", "two_view_pose_pairs_per_s",
+            "two_view_rot_err_deg", "two_view_tdir_err_deg")
+    for metric in want:
+        rec = lines.get(metric)
+        if rec is None or not (isinstance(rec["value"], float) and 0.0 < rec["value"] < float("inf")):
+            fail(f"bench_cuda.py: {metric} missing or not a finite positive number")
+        if rec["baseline_source"] == "literature_fallback" and shutil.which("g++"):
+            fail("bench_cuda.py fell back to the literature baseline while g++ is present")
+    print(f"bench_cuda.py: {len(lines)} lines in {wall:.1f} s", flush=True)
+    res["bench"] = {"wall_s": wall, "lines": [lines[m] for m in want]}
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"kernels launched on phase 10a's paths: {res['launches']}", flush=True)
+    print(f"phase 10: {res['phase_s']:.1f} s", flush=True)
+    out["degenerate"] = res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=128)
@@ -2254,6 +2491,11 @@ def main() -> int:
     phase_oracles(torch, np, dev, root, card, reset_counts, *fps_of["main path"], oracles)
     print(json.dumps(oracles), flush=True)
 
+    # ------------------------------------------------------------ phase 10
+    degenerate = {}
+    phase_degenerate(torch, np, dev, root, reset_counts, degenerate)
+    print(json.dumps(degenerate), flush=True)
+
     # The level chain's launch structure: __global__ launches and device
     # time under the profiler (phase 2's rows).
     print(f"level chain: fused_octave per batch-{B} VGA {results['fused_octave']['global_launches']:.0f} "
@@ -2272,6 +2514,7 @@ def main() -> int:
             "sfm_cli_launches": sfm_launches.get(name, 0),
             "parallel_launches": parallel["parallel"]["launches"].get(name, 0),
             "oracle_launches": oracles["oracles"]["launches"].get(name, 0),
+            "degenerate_launches": degenerate["degenerate"]["launches"].get(name, 0),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)  # nvidia-smi's name and power limit, as it prints them

@@ -9,7 +9,8 @@ order), then per live slot, thread task by thread task: one orientation
 sample per thread; (range, window) tasks summing WIN_SPLIT sample ranges
 in order; warp 0 adding each window's range sums in range order, each lane
 keeping the first max of its windows, then the shuffle tree (ties keep the
-lower window); up to four M-LDB samples per thread; (cell, part) tasks of
+lower window; a NaN norm counts as the largest, as torch.argmax takes it);
+up to four M-LDB samples per thread; (cell, part) tasks of
 CELL_PART members; part sums added in part order; bits packed per warp
 and round by a ballot.  It must equal the plain twins (`describe_plain`,
 `describe_pallas_plain`) bit for bit, and stay within the gates of JAX's
@@ -148,7 +149,7 @@ def _replay_slots(t, kp, x, y, lvl, groups, B, M, lv_f, lv_i):
         for rr in range(1, WIN_SPLIT):
             wsum = wsum + part[:, :, rr, w0 + lanes]
         nrm = wsum[0] * wsum[0] + wsum[1] * wsum[1]
-        take = nrm > bn[:, lanes]
+        take = torch.where(torch.isnan(nrm), ~torch.isnan(bn[:, lanes]), nrm > bn[:, lanes])
         bn[:, lanes] = torch.where(take, nrm, bn[:, lanes])
         bi[:, lanes] = torch.where(take, w0 + lanes, bi[:, lanes])
         bx[:, lanes] = torch.where(take, wsum[0], bx[:, lanes])
@@ -156,7 +157,8 @@ def _replay_slots(t, kp, x, y, lvl, groups, B, M, lv_f, lv_i):
     for o in (16, 8, 4, 2, 1):
         other = torch.arange(32) ^ o
         on, oi, ox, oy = bn[:, other], bi[:, other], bx[:, other], by[:, other]
-        take = (on > bn) | ((on == bn) & (oi < bi))
+        o_nan, b_nan = torch.isnan(on), torch.isnan(bn)
+        take = torch.where(o_nan, ~b_nan | (oi < bi), ~b_nan & ((on > bn) | ((on == bn) & (oi < bi))))
         bn, bi = torch.where(take, on, bn), torch.where(take, oi, bi)
         bx, by = torch.where(take, ox, bx), torch.where(take, oy, by)
     angle = mod_2pi(atan2_cephes(by[:, 0], bx[:, 0]))
@@ -234,9 +236,10 @@ def _check_sums(inter, ds):
         want = part[c, :, 0]
         for j in range(1, WIN_SPLIT):
             want = want + part[c, :, j]
-        assert torch.equal(_window_sums(inside, r), want)
+        torch.testing.assert_close(_window_sums(inside, r), want, rtol=0, atol=0, equal_nan=True)
     twin = torch.cat([_cell_means_in_member_order(inter["smp"], *m) for m in _cell_members(ds)], dim=2)
-    assert torch.equal(twin.permute(1, 0, 2).reshape(twin.shape[1], -1), inter["mean"])
+    torch.testing.assert_close(twin.permute(1, 0, 2).reshape(twin.shape[1], -1), inter["mean"], rtol=0, atol=0,
+                               equal_nan=True)
 
 
 @pytest.fixture(scope="module")
@@ -279,15 +282,29 @@ def _crowded(lvl_oct):
                  for o in lvl_oct)
 
 
-BATCH_CASES = ["holes", "all dead", "ragged grid", "crowded"]
+def _nan_band(lvl_oct):
+    """The scene's planes with a NaN band two columns wide down the middle
+    of every Lx plane: the orientation windows of the keypoints near it
+    sum NaN, and NaN samples enter their cell means."""
+    out = []
+    for o in lvl_oct:
+        lx = o["Lx"].clone()
+        c = lx.shape[-1] // 2
+        lx[..., c : c + 2] = float("nan")
+        out.append({"Lt": o["Lt"], "Lx": lx, "Ly": o["Ly"]})
+    return tuple(out)
+
+
+BATCH_CASES = ["holes", "all dead", "ragged grid", "crowded", "nan band"]
 
 
 @pytest.mark.parametrize("case", BATCH_CASES)
 def test_batch_replay_equals_twin(batch_scene, case):
     """Kernel 3's decomposition on the batched layout equals describe_plain
     bit for bit: holes in the valid prefix (default H100 grid), every slot
-    dead, 2,000 slots on 7 blocks (three rounds, the last ragged), and a
-    scene whose orientation samples crowd one window."""
+    dead, 2,000 slots on 7 blocks (three rounds, the last ragged), a
+    scene whose orientation samples crowd one window, and NaN samples (the
+    first NaN window wins the orientation)."""
     ss, ds, kps, lvl_oct = batch_scene
     grid = RESIDENT
     if case == "all dead":
@@ -298,6 +315,8 @@ def test_batch_replay_equals_twin(batch_scene, case):
         grid = 7
     elif case == "crowded":
         lvl_oct = _crowded(lvl_oct)
+    elif case == "nan band":
+        lvl_oct = _nan_band(lvl_oct)
     ang, words, inter = _replay(kps, _groups(lvl_oct), ss, ds, single=False, grid=grid)
     ang_p, words_p = describe_plain(kps, lvl_oct, ss, ds)
     assert torch.equal(ang, ang_p.reshape(-1)) and torch.equal(words, words_p.reshape(words.shape))
@@ -307,6 +326,9 @@ def test_batch_replay_equals_twin(batch_scene, case):
     assert (words[~v] == 0).all() and (ang[~v] == 0).all()
     if case == "crowded":
         assert (ang[v] == ang[v][0]).all()  # one angle: every window saw the same samples
+    elif case == "nan band":  # some slots take a NaN window: atan2(NaN, NaN) is pi / 2 in the Cephes form
+        nan_ang = mod_2pi(atan2_cephes(torch.tensor([float("nan")]), torch.tensor([float("nan")])))
+        assert torch.isfinite(ang[v]).all() and int((ang[v] == nan_ang).sum()) >= 5
     elif case != "all dead":
         assert int(v.sum()) > 200 and len(torch.unique(ang[v])) > 100
 

@@ -4,14 +4,19 @@ describe, the per-level extract_fn) and the video front end through the
 kernels against the same through the twins, the two-view pose on the
 card against the CPU and the reference bound, and the SfM stack (bundle
 adjustment, PnP, pose graph, a whole run) on the card against the CPU and
-against itself (bit-equal reruns); and two ranks sharing the card (gloo)
-running the sharded BA and the data-parallel extract.  Every test needs an NVIDIA GPU and skips without one; the file
+against itself (bit-equal reruns); two ranks sharing the card (gloo)
+running the sharded BA and the data-parallel extract; and the degenerate
+inputs (chip_smoke.py phase 10a's images through the kernels against the
+twins, with the JAX package's counts) and NaN correspondences into the
+two-view RANSAC (the card against the CPU).  Every test needs an NVIDIA GPU and skips without one; the file
 imports no JAX, so it runs on a GPU machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
 
 import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -46,6 +51,11 @@ from torch_port_helpers import (  # noqa: F401 (cuda: a fixture)
     MATCH_CASES, ROT_BOUND_DEG, TDIR_BOUND_DEG, assert_same_pose, cuda, custom_plan, match_case,
     match_descriptors, pair_keypoints, rot_deg, tdir_err_deg, run_ranks, trajectory_problem,
 )
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -659,3 +669,89 @@ def test_match_kernel_equals_native_matcher(cuda, mutual):
     want = {(int(ia[i]), int(ib[idx[i]])) for i in np.nonzero(acc)[0]}
     assert {(int(i), int(got_idx[i])) for i in np.nonzero(got_acc)[0]} == want and len(want) > 20
     np.testing.assert_array_equal(got_dist[ia], dist)
+
+
+# ---------------------------------------------------------------- degenerate inputs
+
+
+def _same_matches(m, p) -> bool:
+    return all(torch.equal(getattr(m, k), getattr(p, k)) for k in ("idx_b", "distance", "accepted"))
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.DEGENERATE_COUNTS))
+def test_degenerate_input_kernels_equal_plain(cuda, case):
+    """chip_smoke.py phase 10a's case through kernels 1-4 and through the
+    plain twins on the card: equal slot for slot, with the keypoints the
+    JAX package finds."""
+    img, small = chip_smoke.degenerate_inputs(np, ROOT)[case]
+    cfg = AkazeConfig(**chip_smoke.DEGENERATE_SMALL) if small else AkazeConfig()
+    got = extract_batch(img[None], cfg, device=cuda)
+    ref = extract_batch_fn(torch.from_numpy(img[None]).to(cuda), cfg, plain=True)
+    for f in dataclasses.fields(got.keypoints):
+        assert torch.equal(getattr(got.keypoints, f.name), getattr(ref.keypoints, f.name)), f.name
+    assert torch.equal(got.descriptors, ref.descriptors)
+    kp = got.keypoints
+    assert int(kp.valid.sum()) == chip_smoke.DEGENERATE_COUNTS[case]
+    assert torch.isfinite(kp.x[kp.valid]).all() and torch.isfinite(kp.response[kp.valid]).all()
+    d, v = got.descriptors, kp.valid
+    assert _same_matches(match_fn(d, v, d, v, MatchConfig()), match_fn(d, v, d, v, MatchConfig(), plain=True))
+
+
+def test_empty_descriptor_sets_on_card(cuda):
+    img, _ = chip_smoke.degenerate_inputs(np, ROOT)["uint8"]
+    feats = extract_batch(img[None], AkazeConfig(**chip_smoke.DEGENERATE_SMALL), device=cuda)
+    k = chip_smoke.DEGENERATE_SMALL["max_keypoints"]
+    sets = {"empty": (torch.zeros((1, k, 16), dtype=torch.int32, device=cuda),
+                      torch.zeros((1, k), dtype=torch.bool, device=cuda)),
+            "full": (feats.descriptors, feats.keypoints.valid)}
+    for a, b in (("empty", "full"), ("full", "empty"), ("empty", "empty")):
+        m = match_fn(*sets[a], *sets[b], MatchConfig())
+        assert int(m.count().sum()) == 0 and _same_matches(m, match_fn(*sets[a], *sets[b], MatchConfig(), plain=True))
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.NAN_PAIR_CASES))
+def test_nan_pair_card_matches_cpu(cuda, case):
+    """Two-view RANSAC with NaN correspondences on the card and on the CPU,
+    on JAX's draws: the same inliers as the JAX package, the same pose."""
+    rows, keep, want = chip_smoke.NAN_PAIR_CASES[case]
+    x1, x2, mask = chip_smoke.nan_pair_inputs(np)
+    x1[rows] = np.nan
+    mask[rows] = keep
+    cfg = RansacConfig(num_iterations=64)
+    g = jax_uniform(cfg.seed, (cfg.num_iterations, len(mask)))
+    card = estimate_relative_pose(x1, x2, mask, cfg, device=cuda, sample_scores=g)
+    cpu = estimate_relative_pose(x1, x2, mask, cfg, device="cpu", sample_scores=g)
+    assert int(card.num_inliers) == int(cpu.num_inliers) == want
+    if want == 0:
+        assert torch.isnan(card.t).all() and torch.isnan(cpu.t).all()
+    else:
+        assert_same_pose(cpu, card)
+
+
+def test_fused_octave_nan_seed_equals_plain(cuda):
+    """Kernel 2 on a seed with a NaN block (phase 10a's NaN frame, 4 frames
+    at 240x320 with the block in frame 1) and the clean frames' contrast
+    factor, so the NaN region grows level by level: a pixel beside it
+    compares against a NaN neighbour, which no neighbour maximum may drop
+    (torch.maximum propagates NaN).  Every octave's fields equal the twin's,
+    NaN for NaN."""
+    imgs = _frames(cuda, n=4, size=(240, 320))
+    ss, _ = _statics(320, 240, AkazeConfig())
+    cfg = ss.config
+    k = contrast_factor_from_modg(base_stage_plain(imgs, cfg.base_scale_offset)[1], cfg)
+    imgs[1, 100:104, 150:154] = float("nan")
+    seed, _ = base_stage_plain(imgs, cfg.base_scale_offset)
+    groups = octave_groups(ss)
+    n_nan = 0
+    for oi, (l0, n, _, _) in enumerate(groups):
+        if oi:
+            k = k * cfg.contrast_octave_decay
+        a = (seed, k, tuple(ss.specs[l0 : l0 + n]), cfg.diffusivity, oi == 0, float(cfg.detector_threshold),
+             oi + 1 < len(groups))
+        got, ref = fused_octave(*a), fused_octave_plain(*a)
+        for g, r in zip(got, ref):
+            if r is not None:
+                torch.testing.assert_close(g, r, rtol=0, atol=0, equal_nan=True)
+        n_nan += int(torch.isnan(ref[0]).sum())
+        seed = ref[5]
+    assert n_nan > 1000

@@ -163,7 +163,7 @@ def _imports(path: Path):
 
 
 def test_port_imports_no_jax():
-    files = sorted((ROOT / "akaze_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "akaze_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bench_cuda.py"]
     assert len(files) > 15
     for path in files:
         for name in _imports(path):
