@@ -37,17 +37,18 @@ def main(argv=None) -> int:
     p.add_argument("--features-out", help="optional .npz with all features")
     args = p.parse_args(argv)
 
+    import torch
+
     from akaze_tpu_torch.core.config import SfmConfig
     from akaze_tpu_torch.core.device import resolve_device
     from akaze_tpu_torch.interop import features_to_numpy
     from akaze_tpu_torch.matching.video import process_video
-    from akaze_tpu_torch.utils.profiling import MetricsLogger, StageTimer
+    from akaze_tpu_torch.utils.profiling import MetricsLogger, SpanRecorder, record_spans, span
 
     device = resolve_device(args.device)
     frames = load_frames(args.frames)
-    timer = StageTimer(device=device)
     metrics = MetricsLogger()
-    with timer.stage("process_video"):
+    with record_spans(SpanRecorder()) as rec, span("process_video", device):
         res = process_video(
             frames,
             build_config(args),
@@ -55,7 +56,9 @@ def main(argv=None) -> int:
             batch=args.batch,
             device=device,
         )
-    t = timer.summary()["process_video"]
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)  # the one sync: the span's events are read
+    t = rec.seconds("process_video")
     fps = len(frames) / t
     arrays = features_to_numpy(res.features)
     kp_counts = arrays["valid"].sum(axis=1)

@@ -67,34 +67,39 @@ def main(argv=None) -> int:
 
 
 def _run(args, device, mesh) -> int:
+    import torch
+
     from akaze_tpu_torch.cli.extract import build_config
     from akaze_tpu_torch.cli.sequence import load_frames
     from akaze_tpu_torch.core.config import RansacConfig, SfmConfig
     from akaze_tpu_torch.sfm.checkpoint import SfmCheckpoint, save_checkpoint
     from akaze_tpu_torch.sfm.incremental import run_incremental
     from akaze_tpu_torch.sfm.metrics import camera_centers
-    from akaze_tpu_torch.utils.profiling import MetricsLogger, StageTimer
+    from akaze_tpu_torch.utils.profiling import MetricsLogger, SpanRecorder, record_spans, span
 
-    timer = StageTimer(device=device)
-    front = None
-    if mesh is None or mesh.rank == 0:
-        front = _front_end(args, load_frames(args.frames), build_config(args), device, timer)
-    if mesh is not None and mesh.size > 1:
-        import torch
-        import torch.distributed as dist
+    rec = SpanRecorder()
+    with record_spans(rec):
+        front = None
+        if mesh is None or mesh.rank == 0:
+            front = _front_end(args, load_frames(args.frames), build_config(args), device)
+        if mesh is not None and mesh.size > 1:
+            import torch.distributed as dist
 
-        from akaze_tpu_torch.parallel.distributed import backend
+            from akaze_tpu_torch.parallel.distributed import backend
 
-        box = [front]
-        dist.broadcast_object_list(box, src=0, device=device if backend() == "nccl" else
-                                   torch.device("cpu"))
-        front = box[0]
-    num_frames, num_tracks, observations, closures = front
-    with timer.stage("sfm"):
-        sfm = run_incremental(observations, num_frames, SfmConfig(ba_iterations=args.ba_iterations),
-                              RansacConfig(), closures=closures, device=device, mesh=mesh)
+            box = [front]
+            dist.broadcast_object_list(box, src=0, device=device if backend() == "nccl" else
+                                       torch.device("cpu"))
+            front = box[0]
+        num_frames, num_tracks, observations, closures = front
+        with span("sfm", device):
+            sfm = run_incremental(observations, num_frames, SfmConfig(ba_iterations=args.ba_iterations),
+                                  RansacConfig(), closures=closures, device=device, mesh=mesh)
     if mesh is not None and mesh.rank != 0:
         return 0
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)  # the one sync: the stages' events are read
+    stage_seconds = {s.name: rec.seconds(s.name) for s in rec.spans if s.parent is None}
 
     centers = camera_centers(sfm.poses)
     out = {
@@ -112,23 +117,25 @@ def _run(args, device, mesh) -> int:
             keyframe_frames=sfm.keyframe_frames, next_keyframe=num_frames,
         ))
     MetricsLogger().log("sfm_done", frames=num_frames, tracks=num_tracks, points=int(len(sfm.points)),
-                        loop_closures=len(closures), stage_seconds=timer.summary())
+                        loop_closures=len(closures), stage_seconds=stage_seconds)
     print(f"{num_frames} frames, {num_tracks} tracks, {len(sfm.points)} points -> {args.output}")
     return 0
 
 
-def _front_end(args, frames, config, device, timer):
+def _front_end(args, frames, config, device):
     """Video front end, tracks and loop closures: (number of frames, number
-    of tracks, per-track normalized observations, closures)."""
+    of tracks, per-track normalized observations, closures); each stage in
+    a span of its name."""
     from akaze_tpu_torch.matching.video import process_video
     from akaze_tpu_torch.sfm.incremental import build_tracks
+    from akaze_tpu_torch.utils.profiling import span
 
     h, w = frames.shape[1:]
     fx, fy, cx, cy = args.intrinsics if args.intrinsics else (float(w), float(w), w / 2.0, h / 2.0)
-    with timer.stage("process_video"):
+    with span("process_video", device):
         res = process_video(frames, config, batch=args.batch, device=device)
 
-    with timer.stage("tracks"):
+    with span("tracks", device):
         acc = res.matches_prev.accepted.cpu().numpy()
         idx = res.matches_prev.idx_b.cpu().numpy()
         matches = [np.stack([np.nonzero(acc[t + 1])[0], idx[t + 1][acc[t + 1]]], axis=1)
@@ -143,7 +150,7 @@ def _front_end(args, frames, config, device, timer):
     if not args.no_loop_closure and len(res.keyframes) >= 2:
         from akaze_tpu_torch.sfm.loop_closure import detect_loop_closures, merge_closure_tracks
 
-        with timer.stage("loop_closure"):
+        with span("loop_closure", device):
             closures = detect_loop_closures(
                 res.features, res.keyframes, (fx, fy, cx, cy), min_gap=args.loop_min_gap,
                 min_matches=args.loop_min_matches, min_inliers=args.loop_min_inliers,

@@ -25,7 +25,7 @@ from akaze_tpu_torch.frontend.describe import DescribeStatics, describe, describ
 from akaze_tpu_torch.frontend.detect import detect, detect_dense, find_candidates_oct
 from akaze_tpu_torch.frontend.scale_space import ScaleSpaceStatics
 from akaze_tpu_torch.kernels.fed import build_scale_space, build_scale_space_levels
-from akaze_tpu_torch.utils.profiling import check_no_nan
+from akaze_tpu_torch.utils.profiling import check_no_nan, span
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -60,10 +60,15 @@ def extract_batch_fn(imgs: torch.Tensor, config: AkazeConfig, plain: bool = Fals
     imgs = _as_unit_gray(imgs).contiguous()
     height, width = imgs.shape[-2], imgs.shape[-1]
     ss, ds = _statics(width, height, config)
-    stacks = build_scale_space(imgs, ss, plain=plain)
-    cand = find_candidates_oct(stacks["oct"], ss)
-    kps = detect(cand, stacks["oct"], ss)
-    return describe_batched(kps, stacks["lvl_oct"], ss, ds, plain=plain)
+    dev = imgs.device
+    with span("frontend.scale_space", dev):
+        stacks = build_scale_space(imgs, ss, plain=plain)
+    with span("frontend.candidates", dev):
+        cand = find_candidates_oct(stacks["oct"], ss)
+    with span("frontend.detect", dev):
+        kps = detect(cand, stacks["oct"], ss)
+    with span("frontend.describe", dev):
+        return describe_batched(kps, stacks["lvl_oct"], ss, ds, plain=plain)
 
 
 def extract_fn(img: torch.Tensor, config: AkazeConfig, plain: bool = False) -> Features:
@@ -88,7 +93,11 @@ def extract_batch(frames, config: AkazeConfig | None = None, device="cuda") -> F
     config = config or AkazeConfig()
     if frames.ndim != 3:
         raise ValueError(f"extract_batch expects (B, H, W) frames, got shape {tuple(frames.shape)}")
-    feats = extract_batch_fn(_as_tensor(frames, resolve_device(device)), config)
+    device = resolve_device(device)
+    with span("frontend.extract", device):
+        with span("frontend.upload", device):
+            imgs = _as_unit_gray(_as_tensor(frames, device))
+        feats = extract_batch_fn(imgs, config)
     kp = feats.keypoints
     check_no_nan("extract_batch", kp.x, kp.y, kp.response, kp.size, kp.angle)
     return feats

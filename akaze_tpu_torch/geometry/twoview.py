@@ -248,18 +248,23 @@ def estimate_relative_pose_fn(x1, x2, mask, config: RansacConfig, generator=None
         if sample_scores is not None:
             sample_scores = sample_scores[None]
     P, N = mask.shape
-    if sample_scores is None:
-        if generator is None:
-            generator = torch.Generator(device=x1.device)
-            generator.manual_seed(config.seed)
-        sample_scores = torch.rand((P, config.num_iterations, N), generator=generator, device=x1.device)
-    E_h, inl_h, scores = _hypotheses(x1, x2, mask, sample_scores, config)
-    M = min(config.refit_beam, config.num_iterations)
-    _, top = _topk_stable(scores.to(torch.float32), M)  # (P, M)
-    E, inl, _ = _refit(_take(E_h, top), _take(inl_h, top), _take(scores, top), x1, x2, mask, config)
-    R_b, t_b, ch_b = _recover_pose(E, x1[:, None], x2[:, None], inl)
-    best = torch.argmax(ch_b, dim=-1)[:, None]  # (P, 1)
-    E, R, t, inl = (_take(x, best)[:, 0] for x in (E, R_b, t_b, inl))
+    dev = x1.device
+    with span("geometry.twoview", dev):
+        if sample_scores is None:
+            if generator is None:
+                generator = torch.Generator(device=dev)
+                generator.manual_seed(config.seed)
+            sample_scores = torch.rand((P, config.num_iterations, N), generator=generator, device=dev)
+        with span("geometry.hypotheses", dev):
+            E_h, inl_h, scores = _hypotheses(x1, x2, mask, sample_scores, config)
+            M = min(config.refit_beam, config.num_iterations)
+            _, top = _topk_stable(scores.to(torch.float32), M)  # (P, M)
+        with span("geometry.refit", dev):
+            E, inl, _ = _refit(_take(E_h, top), _take(inl_h, top), _take(scores, top), x1, x2, mask, config)
+        with span("geometry.pose", dev):
+            R_b, t_b, ch_b = _recover_pose(E, x1[:, None], x2[:, None], inl)
+            best = torch.argmax(ch_b, dim=-1)[:, None]  # (P, 1)
+            E, R, t, inl = (_take(x, best)[:, 0] for x in (E, R_b, t_b, inl))
     res = TwoViewResult(E=E, R=R, t=t, inliers=inl, num_inliers=inl.sum(-1, dtype=torch.int32))
     if single:
         res = TwoViewResult(**{f.name: getattr(res, f.name)[0] for f in dataclasses.fields(res)})

@@ -36,6 +36,7 @@ from akaze_tpu_torch.frontend.scale_space import (
     shift,
 )
 from akaze_tpu_torch.kernels import _build
+from akaze_tpu_torch.utils.profiling import span
 
 #: Sub-pixel offsets quantise to 1/16000 px in two 16-bit halves of one
 #: int32 word; -1 marks a rejected fit.
@@ -488,7 +489,8 @@ def build_scale_space_levels(imgs: torch.Tensor, statics, plain: bool = False) -
     base = base_stage_plain if plain else base_stage
     level = fused_level_batched_plain if plain else fused_level_batched
     seed, modg = base(imgs, float(config.base_scale_offset))
-    k = contrast_factor_from_modg(modg, config)
+    with span("frontend.contrast", imgs.device):
+        k = contrast_factor_from_modg(modg, config)
     B, L = imgs.shape[0], len(specs)
     stacks = {key: imgs.new_zeros((B, L, statics.h0, statics.w0)) for key in ("Lt", "Lx", "Ly", "Ldet")}
     for i, spec in enumerate(specs):
@@ -515,7 +517,8 @@ def build_scale_space(imgs: torch.Tensor, statics, plain: bool = False) -> dict:
     base = base_stage_plain if plain else base_stage
     octave = fused_octave_plain if plain else fused_octave
     seed, modg = base(imgs, float(config.base_scale_offset))
-    k = contrast_factor_from_modg(modg, config)
+    with span("frontend.contrast", imgs.device):
+        k = contrast_factor_from_modg(modg, config)
     groups = octave_groups(statics)
     lvl_oct, oct_fields = [], []
     for oi, (l0, n, _, _) in enumerate(groups):

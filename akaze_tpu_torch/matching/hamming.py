@@ -16,6 +16,7 @@ import torch
 from akaze_tpu_torch.core.config import MatchConfig
 from akaze_tpu_torch.core.device import resolve_device
 from akaze_tpu_torch.kernels.match import match_reduce, match_reduce_plain
+from akaze_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -39,14 +40,18 @@ def match_fn(desc_a, valid_a, desc_b, valid_b, config: MatchConfig, plain: bool 
     if single:
         desc_a, valid_a, desc_b, valid_b = (x[None] for x in (desc_a, valid_a, desc_b, valid_b))
     reduce = match_reduce_plain if plain else match_reduce
-    best, second, nn_b, _, nn_a = reduce(
-        desc_a.contiguous(), valid_a.contiguous(), desc_b.contiguous(), valid_b.contiguous()
-    )
-    rows = torch.arange(desc_a.shape[1], device=desc_a.device, dtype=torch.int32)
-    ok = valid_a & (best <= config.max_distance)
-    ok &= best.to(torch.float32) < config.ratio * second.to(torch.float32)
-    if config.mutual:
-        ok &= torch.gather(nn_a, 1, nn_b.long()) == rows
+    dev = desc_a.device
+    with span("matching.match", dev):
+        with span("matching.reduce", dev):
+            best, second, nn_b, _, nn_a = reduce(
+                desc_a.contiguous(), valid_a.contiguous(), desc_b.contiguous(), valid_b.contiguous()
+            )
+        with span("matching.filter", dev):
+            rows = torch.arange(desc_a.shape[1], device=dev, dtype=torch.int32)
+            ok = valid_a & (best <= config.max_distance)
+            ok &= best.to(torch.float32) < config.ratio * second.to(torch.float32)
+            if config.mutual:
+                ok &= torch.gather(nn_a, 1, nn_b.long()) == rows
     m = Matches(idx_b=nn_b, distance=best, accepted=ok)
     if single:
         m = Matches(m.idx_b[0], m.distance[0], m.accepted[0])

@@ -28,6 +28,9 @@
    then consecutive-pair match with the default MatchConfig; 1 warm-up and
    `reps` timed passes on distinct inputs.  Launch counts are zeroed just
    before and read just after; every kernel must have launched.
+   One more call runs with utils.profiling.record_spans on: the device ms
+   of each frontend.* and matching.* span (upload, scale space, contrast
+   factor, candidates, detect, describe, kernel 4, filters).
    One more batch runs under torch.profiler: device time by kernel, split
    into the kernels of akaze_tpu_torch/csrc and PyTorch ops, and the
    device's idle share of that profiled batch.
@@ -35,7 +38,8 @@
    chunked describe through kernel 7), timed the same way, and path B,
    extract_fn on single VGA frames (kernels 1, 5 and 7), then
    describe(backend="pallas") (kernel 6) on the same frames, each with its
-   own launch counts; one path-B frame runs under torch.profiler.
+   own launch counts; path A's describe span is printed beside the main
+   path's, and one path-B frame runs under torch.profiler.
 4. Runs the three paths at a small size through the kernels and through
    the plain twins, both on the card, and holds them to the slice gates
    (paths A and B: equal keypoints and descriptors).
@@ -71,7 +75,7 @@
    (interop.jax_uniform), ATE < 0.05, with its middle window under
    torch.profiler (launches, idle share).
    Last the sfm CLI on 64 VGA frames panning out and back (batch 16, loop
-   closure on): its StageTimer stages, kernels 1-4 launched, kernel 4's
+   closure on): its stages' spans, kernels 1-4 launched, kernel 4's
    launches in the closure step.
 8. The parallel paths (akaze_tpu_torch/parallel, bundle_adjust_sharded,
    run_incremental(mesh=), sfm --mesh), in rank processes that share the
@@ -161,6 +165,13 @@ POPC_OPS_PER_S = 16 * 132 * 1.98e9
 INT8_OPS_PER_S = 1979e12  # H100 SXM int8 tensor cores, dense, published
 # The SfM stack's utils.profiling.span names.
 SPAN_NAMES = ("sfm.window", "sfm.ba", "sfm.pose_graph", "linalg")
+# The spans of extract_batch (frontend.*) and match (matching.*) below their
+# entry spans, in the order they open.
+STAGE_SPANS = ("frontend.upload", "frontend.scale_space", "frontend.contrast", "frontend.candidates",
+               "frontend.detect", "frontend.describe", "matching.reduce", "matching.filter")
+# The names of every utils.profiling.span: the profiler projects them onto
+# the device's timeline, where they are no device work.
+SPAN_PREFIXES = ("sfm.", "linalg", "frontend.", "matching.", "geometry.")
 
 
 def fail(msg: str) -> None:
@@ -266,7 +277,7 @@ def device_rows(torch, prof) -> list:
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        if getattr(e, "is_user_annotation", False) or e.key.startswith("ProfilerStep") or e.key in SPAN_NAMES:
+        if getattr(e, "is_user_annotation", False) or e.key.startswith(("ProfilerStep", *SPAN_PREFIXES)):
             continue
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
@@ -847,7 +858,7 @@ def phase_sfm(torch, np, dev, reset_counts, out: dict, keep: dict) -> None:
     record = [json.loads(line) for line in log.getvalue().splitlines() if line.startswith("{")][-1]
     stages = record["stage_seconds"]
     print(f"exit {rc_cli} in {cli_wall:.3f} s: {summary['num_tracks']} tracks, {summary['num_points']} points, "
-          f"{summary['num_loop_closures']} loop closures; stage s (StageTimer): "
+          f"{summary['num_loop_closures']} loop closures; stage s (spans): "
           + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()), flush=True)
     print(f"kernels launched by the CLI run: {counts}; kernel 4 in the closure step: "
           f"{closure_launches.get('match', 0)}", flush=True)
@@ -1177,7 +1188,6 @@ def phase_parallel(torch, np, dev, keep: dict, out: dict) -> None:
     from akaze_tpu_torch.parallel.pipeline_stage import sequential_stream
     from akaze_tpu_torch.sfm.incremental import run_incremental
     from akaze_tpu_torch.sfm.metrics import camera_centers
-    from akaze_tpu_torch.utils.profiling import StageTimer
     from akaze_tpu_torch.utils.synthetic import textured_scene, video_sequence
 
     H, W = 480, 640
@@ -1224,7 +1234,7 @@ def phase_parallel(torch, np, dev, keep: dict, out: dict) -> None:
         # CPU, on the front end's tracks and closures, against phase 7's card run.
         cli_args = argparse.Namespace(intrinsics=None, batch=16, no_loop_closure=False, loop_min_gap=8,
                                       loop_min_matches=60, loop_min_inliers=30)
-        n_cli, _, cli_obs, cli_closures = cli_sfm._front_end(cli_args, cli_frames, config, dev, StageTimer(device=dev))
+        n_cli, _, cli_obs, cli_closures = cli_sfm._front_end(cli_args, cli_frames, config, dev)
         cli_cpu = run_incremental(cli_obs, n_cli, SfmConfig(ba_iterations=10), RansacConfig(), closures=cli_closures,
                                   device="cpu")
         cli_spread = float(np.abs(camera_centers(cli_cpu.poses) - np.asarray(keep["cli"]["camera_centers"])).max())
@@ -1940,6 +1950,7 @@ def main() -> int:
         from akaze_tpu_torch.kernels.match import match_reduce, match_reduce_plain
         from akaze_tpu_torch.kernels.patch import gather_patches, gather_patches_plain
         from akaze_tpu_torch.matching.hamming import match, match_fn
+        from akaze_tpu_torch.utils.profiling import SpanRecorder, record_spans
         from akaze_tpu_torch.utils.synthetic import video_sequence
     except ImportError as e:
         fail(f"the akaze_tpu_torch package is not next to this script ({e})")
@@ -2318,27 +2329,17 @@ def main() -> int:
         if launches[name] != per * n_batches:
             fail(f"{name}: {launches[name]} launches, expected {per} per batch")
 
-    # Stage breakdown of one batch (device time between stages).
-    frames = frame_sets[0]
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-    from akaze_tpu_torch.kernels.fed import build_scale_space
+    # Stage breakdown of one batch: the spans of a real extract_batch + match call.
+    def stage_spans(cfg):
+        with record_spans(SpanRecorder()) as rec:
+            match(*_pairs(extract_batch(frame_sets[0], cfg)), mcfg)
+        torch.cuda.synchronize()
+        return rec
 
-    ev[0].record()
-    st = build_scale_space(frames, ss)
-    ev[1].record()
-    cand = find_candidates_oct(st["oct"], ss)
-    ev[2].record()
-    kps = detect(cand, st["oct"], ss)
-    ev[3].record()
-    _, descs = describe(kps, st["lvl_oct"], ss, ds)
-    ev[4].record()
-    match_fn(descs[:-1], kps.valid[:-1], descs[1:], kps.valid[1:], mcfg)
-    ev[5].record()
-    torch.cuda.synchronize()
-    names = ("scale space (kernels 1-2 + contrast factor)", "candidate top-K", "NMS + top-M + sub-pixel",
-             "describe (kernel 3)", "match (kernel 4 + filters)")
-    for i, name in enumerate(names):
-        print(f"  stage {name}: {ev[i].elapsed_time(ev[i + 1]):.3f} ms", flush=True)
+    spans = stage_spans(config)
+    for name in STAGE_SPANS:
+        print(f"  span {name}: {spans.ms(name):.3f} ms", flush=True)
+    print(f"  scale space less the contrast factor (self): {spans.self_ms('frontend.scale_space'):.3f} ms", flush=True)
     profile_step(torch, ours, "batch", lambda: match(*_pairs(extract_batch(frame_sets[1], config)), mcfg))
 
     # Path A: the same batches through the chunked describe (kernel 7).
@@ -2348,14 +2349,10 @@ def main() -> int:
             fail(f"kernel {name} was not launched by path A")
     if launches_a["describe"] != 0:
         fail("path A launched the fused describe kernel")
-    _, ds_a = _statics(W, H, cfg_a)
-    ev[0].record()
-    fdescribe.describe_batched(kps, st["lvl_oct"], ss, ds_a)
-    ev[1].record()
-    torch.cuda.synchronize()
-    print(f"  stage describe (restack + kernel 7 + chunked describe): {ev[0].elapsed_time(ev[1]):.3f} ms "
-          f"(the fused describe of the same keypoints: {ev[3].elapsed_time(ev[4]):.3f} ms above)", flush=True)
-    del frame_sets, st, cand, kps, descs
+    print(f"  span frontend.describe (restack + kernel 7 + chunked describe): "
+          f"{stage_spans(cfg_a).ms('frontend.describe'):.3f} ms (the fused describe: "
+          f"{spans.ms('frontend.describe'):.3f} ms above)", flush=True)
+    del frame_sets
     torch.cuda.empty_cache()
 
     # Path B: extract_fn on single VGA frames (kernels 1, 5 and 7), 1

@@ -2,7 +2,7 @@
 with --device cpu, mirroring tests/test_cli.py at its sizes and arguments;
 their JSON and summary keys against the JAX CLIs' on the same inputs;
 feature files that load in either package with equal arrays; and the
-timing, metrics and trace utilities the CLIs use."""
+stage spans and metrics the CLIs use."""
 
 import io
 import json
@@ -26,7 +26,7 @@ from akaze_tpu_torch.cli import sfm as cli_sfm
 from akaze_tpu_torch.cli.imgio import load_features, load_gray, save_features
 from akaze_tpu_torch.core.config import AkazeConfig
 from akaze_tpu_torch.frontend.pipeline import extract
-from akaze_tpu_torch.utils.profiling import MetricsLogger, StageTimer, profiler_trace
+from akaze_tpu_torch.utils.profiling import MetricsLogger, SpanRecorder, record_spans, span
 from akaze_tpu_torch.utils.synthetic import textured_scene, video_sequence, warp_homography
 
 torch.set_num_threads(2)
@@ -103,15 +103,19 @@ def test_cli_sequence_and_keys_equal_jax(tmp_path):
             assert z[k].shape == zr[k].shape and z[k].dtype == zr[k].dtype, k
 
 
-def test_cli_sfm_and_keys_equal_jax(tmp_path):
+def test_cli_sfm_and_keys_equal_jax(tmp_path, capsys):
     """tests/test_cli.py's SfM smoke run (a planar pan, so structure and
     outputs are checked, not the trajectory): the same JSON keys and track
-    count as the JAX CLI, and a checkpoint the JAX package loads."""
+    count as the JAX CLI, a checkpoint the JAX package loads, and the
+    seconds of each stage in its metrics line."""
     fp = tmp_path / "frames.npy"
     np.save(fp, video_sequence(5, 96, 128, seed=5))
     args = [str(fp), "--batch", "5", "--ba-iterations", "4"]
     out, ckpt = tmp_path / "sfm.json", tmp_path / "map.npz"
     assert cli_sfm.main([*args, "-o", str(out), "--checkpoint", str(ckpt), *_CPU]) == 0
+    done = json.loads(capsys.readouterr().err.strip().splitlines()[-1])
+    assert done["event"] == "sfm_done" and {"process_video", "tracks", "sfm"} <= set(done["stage_seconds"])
+    assert all(t > 0 for t in done["stage_seconds"].values())
     s = json.loads(out.read_text())
     assert s["num_frames"] == 5 and len(s["poses"]) == 5 and s["num_tracks"] > 10
     assert np.isfinite(np.asarray(s["camera_centers"])).all()
@@ -218,23 +222,24 @@ def test_cli_sfm_defaults_to_the_card(tmp_path):
         cli_sfm.main([str(tmp_path / "fr.npy"), "-o", str(tmp_path / "s.json"), *_FAST])
 
 
-def test_profiling_utils(tmp_path):
-    timer = StageTimer(device="cpu")
-    for _ in range(2):
-        with timer.stage("extract"):
-            extract(textured_scene(60, 80, seed=1), device="cpu")
-    with pytest.raises(ValueError):  # a failing stage raises through and is not timed
-        with timer.stage("fails"):
-            raise ValueError
-    assert set(timer.summary()) == {"extract"} and timer.summary()["extract"] > 0
+def test_profiling_utils():
+    """The CLIs' stage seconds (the entry spans of one recorder, on the host
+    clock off the card) and their JSON-lines metrics."""
+    rec = SpanRecorder()
+    cpu = torch.device("cpu")
+    with record_spans(rec):
+        for _ in range(2):
+            with span("extract", cpu):
+                extract(textured_scene(60, 80, seed=1), device="cpu")
+        with pytest.raises(ValueError):  # a failing stage raises through and closes its span
+            with span("fails", cpu):
+                raise ValueError
+    stages = [s.name for s in rec.spans if s.parent is None]
+    assert stages == ["extract", "extract", "fails"]
+    assert rec.seconds("extract") > rec.seconds("frontend.extract") > 0
+    assert {rec.spans[s.parent].name for s in rec.spans if s.name == "frontend.extract"} == {"extract"}
     stream = io.StringIO()
-    MetricsLogger(stream).log("sequence_done", frames=3, fps=1.5)
-    rec = json.loads(stream.getvalue())
-    assert rec["event"] == "sequence_done" and rec["frames"] == 3 and "time" in rec
-    with profiler_trace(str(tmp_path / "trace")):
-        with timer.stage("traced"):
-            torch.ones(4).sum()
-    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
-    assert any(e.get("name") == "traced" for e in trace["traceEvents"])
-    with profiler_trace(None):  # no directory: no trace
-        pass
+    MetricsLogger(stream).log("sequence_done", frames=3, fps=1.5, stage_seconds={"extract": rec.seconds("extract")})
+    line = json.loads(stream.getvalue())
+    assert line["event"] == "sequence_done" and line["frames"] == 3 and "time" in line
+    assert line["stage_seconds"]["extract"] == rec.seconds("extract")

@@ -442,8 +442,9 @@ def test_run_incremental_marks_its_spans(scene):
             TI.run_incremental(observations, 10, SfmConfig(ba_iterations=2), RansacConfig(**_RANSAC), ba_every=4,
                                closures=[closure], device="cpu")
     assert rec.count("sfm.window") == 0  # CUDA events only on the card
-    outer = [n for n in names if n != "linalg"]
+    outer = [n for n in names if n.startswith("sfm.")]
     assert outer == ["sfm.window", "sfm.ba"] * 2 + ["sfm.window", "sfm.ba", "sfm.pose_graph", "sfm.ba"]
+    assert names.index("geometry.twoview") < names.index("sfm.window")  # the two-view start
     assert names.count("linalg") > 10 * 9  # each keyframe's 10 PnP solves, then the BA and the pose graph
     traced = {e.key for e in prof.key_averages()}
     assert {"sfm.window", "sfm.ba", "sfm.pose_graph", "linalg"} <= traced
