@@ -4,8 +4,9 @@
 Candidates are the exact per-level top-K of the candidate scores; a
 symmetric cross-level NMS suppresses a candidate P when some candidate Q on
 the same or an adjacent level lies within r = 0.5 * size[max(level_P,
-level_Q)] and beats P on (response, earlier level-major raster order); the
-global top-M of the survivors is refined from the packed sub-pixel field.
+level_Q)] and beats P on (response, earlier level-major raster order)
+(`kernels/nms.py`: one CUDA launch on the card); the global top-M of the
+survivors is refined from the packed sub-pixel field.
 `detect_dense` is the same selection on the padded (L, H0, W0) Ldet stacks
 of the per-level build (the JAX package's `detect` with cand=None): strict
 3x3 maxima above threshold inside each level's border, exact top-K per
@@ -26,6 +27,7 @@ import torch
 from akaze_tpu_torch.core.types import Keypoints
 from akaze_tpu_torch.frontend.scale_space import ScaleSpaceStatics
 from akaze_tpu_torch.kernels.fed import NEG, octave_groups, unpack_sub
+from akaze_tpu_torch.kernels.nms import cross_level_nms
 
 
 def _topk_stable(values: torch.Tensor, k: int):
@@ -63,45 +65,6 @@ def find_candidates_oct(oct_fields, statics: ScaleSpaceStatics) -> dict:
     yi = torch.cat(yi_g, dim=1).to(torch.int32)
     xi = torch.cat(xi_g, dim=1).to(torch.int32)
     return {"resp": resp, "yi": yi, "xi": xi, "flat": yi * w0 + xi, "valid": resp > NEG}
-
-
-def cross_level_nms(cand: dict, statics: ScaleSpaceStatics) -> torch.Tensor:
-    """Symmetric NMS over same + adjacent levels on (B, L, K) candidates;
-    returns the surviving mask."""
-    dev = cand["resp"].device
-    L = statics.num_levels
-    ratios = torch.as_tensor(statics.ratios, device=dev)[:, None]
-    x0 = cand["xi"].to(torch.float32) * ratios
-    y0 = cand["yi"].to(torch.float32) * ratios
-    resp = cand["resp"]
-    valid = cand["valid"]
-    npx = statics.h0 * statics.w0
-    tie = torch.arange(L, dtype=torch.int32, device=dev)[:, None] * npx + cand["flat"]
-    r2 = torch.as_tensor((statics.config.dedup_radius_factor * statics.sizes) ** 2, device=dev)
-    r2_next = torch.cat([r2[1:], torch.zeros_like(r2[:1])])
-
-    def shift(a, d, fill):
-        """Shift along the level axis by d (d = +1: level l sees l-1)."""
-        pad = torch.full_like(a[:, :1], fill)
-        if d == 1:
-            return torch.cat([pad, a[:, :-1]], dim=1)
-        return torch.cat([a[:, 1:], pad], dim=1)
-
-    suppressed = torch.zeros_like(valid)
-    for d, r2_pair in ((0, r2), (1, r2), (-1, r2_next)):
-        if d == 0:
-            qx, qy, qresp, qtie, qvalid = x0, y0, resp, tie, valid
-        else:
-            qx, qy = shift(x0, d, 0.0), shift(y0, d, 0.0)
-            qresp, qtie, qvalid = shift(resp, d, NEG), shift(tie, d, 0), shift(valid, d, False)
-        dx = x0[..., :, None] - qx[..., None, :]
-        dy = y0[..., :, None] - qy[..., None, :]
-        close = dx * dx + dy * dy <= r2_pair[:, None, None]
-        beats = (qresp[..., None, :] > resp[..., :, None]) | (
-            (qresp[..., None, :] == resp[..., :, None]) & (qtie[..., None, :] < tie[..., :, None])
-        )
-        suppressed |= (close & beats & qvalid[..., None, :]).any(dim=-1)
-    return valid & ~suppressed
 
 
 def subpixel_from_fields_oct(lvl, xi, yi, oct_fields, statics: ScaleSpaceStatics):
@@ -171,9 +134,9 @@ def _top_m(cand: dict, statics: ScaleSpaceStatics):
     """NMS, then the global top-M of the survivors: (response, level, yi,
     xi), each (B, M), invalid slots at the -3e38 response."""
     cfg = statics.config
-    valid = cross_level_nms(cand, statics)
-    B, L, K = valid.shape
-    flat_resp = torch.where(valid, cand["resp"], torch.full_like(cand["resp"], NEG)).reshape(B, L * K)
+    masked = cross_level_nms(cand, statics)  # refuses an int32 overflow of the packed key below
+    B, L, K = masked.shape
+    flat_resp = masked.reshape(B, L * K)
     M = cfg.max_keypoints
     k = min(M, L * K)
     top_resp, order = _topk_stable(flat_resp, k)
@@ -181,10 +144,8 @@ def _top_m(cand: dict, statics: ScaleSpaceStatics):
         top_resp = torch.nn.functional.pad(top_resp, (0, M - k), value=NEG)
         order = torch.nn.functional.pad(order, (0, M - k))
     npx = statics.h0 * statics.w0
-    if npx * L >= 2**31:
-        raise ValueError(f"packed candidate key overflows int32: {npx} px * {L} levels")
     w0 = statics.w0
-    lvl = torch.arange(L, dtype=torch.int32, device=valid.device)[:, None].expand(L, K)
+    lvl = torch.arange(L, dtype=torch.int32, device=flat_resp.device)[:, None].expand(L, K)
     packed = (lvl * npx + cand["flat"]).reshape(B, L * K)
     sel = torch.gather(packed, 1, order)
     class_id = torch.div(sel, npx, rounding_mode="floor")

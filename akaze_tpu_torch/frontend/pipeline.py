@@ -54,9 +54,12 @@ def _as_tensor(frames, device: torch.device) -> torch.Tensor:
 def extract_batch_fn(imgs: torch.Tensor, config: AkazeConfig, plain: bool = False) -> Features:
     """Batched pipeline on a (B, H, W) tensor on its device (the JAX
     package's TPU branch): per-octave scale space (kernels 1-2), detection
-    (PyTorch ops), description on the branch `config.describe_backend`
+    (PyTorch ops and the NMS kernel), description on the branch `config.describe_backend`
     picks (kernel 3, or kernel 7 and PyTorch ops).  plain=True runs the
-    plain twins on any device (for comparisons)."""
+    plain twins of kernels 1-7 on any device (for comparisons); the
+    cross-level NMS in detection runs its kernel on CUDA tensors whatever
+    the flag (held to its plain form in tests/test_torch_nms.py and
+    chip_smoke.py phase 2)."""
     imgs = _as_unit_gray(imgs).contiguous()
     height, width = imgs.shape[-2], imgs.shape[-1]
     ss, ds = _statics(width, height, config)
@@ -76,7 +79,9 @@ def extract_fn(img: torch.Tensor, config: AkazeConfig, plain: bool = False) -> F
     JAX package's per-level branch (the one it runs off the TPU): the
     per-level build (kernel 1, the contrast factor, kernel 5 per level) into
     padded (L, H0, W0) stacks, dense detection on Ldet, and the non-fused
-    describe (kernel 7).  plain=True runs the plain twins on any device."""
+    describe (kernel 7).  plain=True runs the plain twins of kernels 1-7
+    on any device; the cross-level NMS runs its kernel on CUDA tensors
+    whatever the flag."""
     if img.ndim != 2:
         raise ValueError(f"extract_fn expects a single (H, W) grayscale image, got shape "
                          f"{tuple(img.shape)}; use extract_batch_fn for batches")

@@ -4,13 +4,15 @@
     python3 chip_smoke.py [--batch 128] [--reps 3]
 
 1. Prints the card (nvidia-smi name and power limit), the torch / CUDA /
-   nvcc versions, and builds the seven kernels from akaze_tpu_torch/csrc
-   (all nvcc processes in parallel), timing the build and printing each
-   __global__ function's registers and spills as ptxas reports them.
+   nvcc versions, and builds the seven kernels and the NMS kernel from
+   akaze_tpu_torch/csrc (all nvcc processes in parallel), timing the build
+   and printing each __global__ function's registers and spills as ptxas
+   reports them.
 2. Holds each kernel against its plain PyTorch twin on the card, on the
-   inputs its path gives it (kernels 1-4 and 7: batch VGA frames; kernels 5
-   and 6: single VGA frames of the per-level path), with the stated
-   tolerances (kernels 1, 3, 4, 6 and 7 bit for bit), and times both.
+   inputs its path gives it (kernels 1-4, 7 and the NMS: batch VGA frames;
+   kernels 5 and 6: single VGA frames of the per-level path), with the
+   stated tolerances (kernels 1, 3, 4, 6, 7 and the NMS bit for bit), and
+   times both.
    Kernels 3 and 6 (one CUDA kernel) also print their block shape,
    resident blocks per SM, shared memory and registers.  A
    kernel's `ms` is the device time of its __global__ functions under
@@ -418,7 +420,8 @@ def phase_video(torch, np, dev, reset_counts, out: dict) -> None:
     if res.features.descriptors.shape != (T, config.max_keypoints, 16) or res.keyframes[0] != 0:
         fail("video: unexpected output shapes or keyframes")
     chunks = -(-T // batch)
-    expect = {"base_stage": chunks, "fused_octave": 4 * chunks, "describe": chunks, "match": 1 + (T - 1)}
+    expect = {"base_stage": chunks, "fused_octave": 4 * chunks, "describe": chunks, "match": 1 + (T - 1),
+              "nms": chunks}
     print(f"timed call {wall:.3f} s: {T / wall:.1f} frames/s; {len(res.keyframes)} keyframes; keypoints/frame "
           f"mean {kp_mean:.1f}; accepted matches/pair mean {res.match_counts[1:].mean():.1f}; matches to the "
           f"keyframe mean {res.kf_match_counts[1:].mean():.1f}", flush=True)
@@ -468,7 +471,7 @@ def phase_video(torch, np, dev, reset_counts, out: dict) -> None:
         "frames": T, "batch": batch, "fps": T / wall, "wall_s": wall, "keyframes": len(res.keyframes),
         "keypoints_per_frame": kp_mean, "matches_per_pair": float(res.match_counts[1:].mean()),
         "extract_ms": split[0], "match_ms": split[1], "keyframe_loop_ms": split[2],
-        "keyframe_loop_host_ms": host_loop * 1e3, "launches": {k: counts[k] for k in expect},
+        "keyframe_loop_host_ms": host_loop * 1e3, "launches": counts,
     }
 
 
@@ -614,8 +617,7 @@ def phase_two_view(torch, np, dev, reset_counts, out: dict) -> None:
         "extract_ms": [x[0] for x in ms], "match_ms": [x[1] for x in ms], "ransac_ms": [x[2] for x in ms],
         "ransac_profiled": {"wall_ms": prof_wall, "device_ms": dev_ms, "device_launches": n_launch},
         "linalg_ms": lin_ms, "linalg_calls_ms": lin,
-        "launches": {k: counts[k] for k in ("base_stage", "fused_octave", "describe", "match")},
-        "accuracy": errors,
+        "launches": counts, "accuracy": errors,
     }
 
 
@@ -872,8 +874,7 @@ def phase_sfm(torch, np, dev, reset_counts, out: dict, keep: dict) -> None:
     res_out["cli"] = {"frames": T, "batch": batch, "wall_s": cli_wall, "stage_s": stages,
                       "tracks": summary["num_tracks"], "points": summary["num_points"],
                       "loop_closures": summary["num_loop_closures"],
-                      "launches": {k: counts[k] for k in ("base_stage", "fused_octave", "describe", "match")},
-                      "closure_match_launches": closure_launches["match"]}
+                      "launches": counts, "closure_match_launches": closure_launches["match"]}
     out["sfm"] = res_out
 
 
@@ -1385,10 +1386,10 @@ def phase_parallel(torch, np, dev, keep: dict, out: dict) -> None:
         res["cli"] = {"wall_s": cli_wall, "rank_wall_s": [r["wall_s"] for r in cli], "centers_max_diff": d_cli,
                       "cpu_centers_max_diff": cli_spread,
                       "launches_by_rank": [r["launches"] for r in cli]}
-    res["launches"] = {n: sum(ln[n] for ln in res["dp"]["launches_by_rank"] + res["cli"]["launches_by_rank"]
-                              + [x for w in (3, 6) for x in res["pipeline"][f"ranks_{w}"]["launches_by_rank"]])
-                       for n in ("base_stage", "fused_octave", "describe", "match")}
-    print(f"kernels 1-4 launched on phase 8's paths (all ranks): {res['launches']}", flush=True)
+    by_rank = (res["dp"]["launches_by_rank"] + res["cli"]["launches_by_rank"]
+               + [x for w in (3, 6) for x in res["pipeline"][f"ranks_{w}"]["launches_by_rank"]])
+    res["launches"] = {n: sum(ln[n] for ln in by_rank) for n in by_rank[0]}
+    print(f"kernels launched on phase 8's paths (all ranks): {res['launches']}", flush=True)
     res["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 8: {res['phase_s']:.1f} s", flush=True)
     out["parallel"] = res
@@ -1948,6 +1949,7 @@ def main() -> int:
             unpack_sub,
         )
         from akaze_tpu_torch.kernels.match import match_reduce, match_reduce_plain
+        from akaze_tpu_torch.kernels.nms import cross_level_nms, cross_level_nms_plain
         from akaze_tpu_torch.kernels.patch import gather_patches, gather_patches_plain
         from akaze_tpu_torch.matching.hamming import match, match_fn
         from akaze_tpu_torch.utils.profiling import SpanRecorder, record_spans
@@ -2094,9 +2096,41 @@ def main() -> int:
     print(f"  fused_octave level-at-a-time floor: {floor2 / 1e9:.4f} GB, "
           f"{bound_ms(floor2, 0)[0]:.4f} ms (24 B/px per level)", flush=True)
 
-    # Kernel 3 on the plain twins' stacks and keypoints.
+    # The NMS kernel on the candidates of the plain twins' fields, bit for
+    # bit: the survivors' responses, NEG elsewhere.
     lvl_oct = tuple({"Lt": o[0], "Lx": o[1], "Ly": o[2]} for o in oct_p)
     fields = tuple({"score": o[3], "sub": o[4]} for o in oct_p)
+    cand = find_candidates_oct(fields, ss)
+    masked_k = cross_level_nms(cand, ss)
+    keep_p = cross_level_nms_plain(cand, ss)
+    masked_p = torch.where(keep_p, cand["resp"], torch.full_like(cand["resp"], fed_kernels.NEG))
+    if not torch.equal(masked_k.view(torch.int32), masked_p.view(torch.int32)):
+        fail("cross_level_nms differs from its plain form (bit-equality required)")
+    nv_l = cand["valid"].sum(-1).double()  # (B, L) valid candidates per level
+    L_, K_ = nv_l.shape[1], cand["resp"].shape[-1]
+    near = nv_l.clone()
+    near[:, 1:] += nv_l[:, :-1]
+    near[:, :-1] += nv_l[:, 1:]
+    pairs_valid = float((nv_l * near).sum().item())
+    pairs_dense = B * K_ * K_ * (3 * L_ - 2)
+    print(f"cross_level_nms {int(nv_l.sum())} valid of {cand['valid'].numel()} slots, "
+          f"{int((cand['valid'] & ~keep_p).sum())} suppressed: masked responses bit-equal; "
+          f"{pairs_valid / 1e6:.3f} M pair tests between valid slots ({pairs_dense / 1e6:.1f} M in the dense form)",
+          flush=True)
+    tm_nms = times(lambda: cross_level_nms(cand, ss))
+    plain_nms = timed(torch, lambda: cross_level_nms_plain(cand, ss), reps=1)
+    # Bytes: every slot's valid flag (1 B) read and its masked response
+    # (4 B) written, a valid slot's resp, xi, yi and flat (4 B each) read;
+    # operations: 8 per pair test (two differences, two squares, a sum, the
+    # radius and the response compares) between valid slots of a level and
+    # its neighbours.
+    nbytes = 5 * cand["valid"].numel() + 16 * float(nv_l.sum().item())
+    record("nms", source="akaze_tpu_torch/csrc/nms.cu", replaces="none (port-only)", max_abs_err=0.0,
+           **tm_nms, plain_ms=plain_nms, bound=bound_ms(nbytes, 8 * pairs_valid))
+    print(f"  nms bound on the dense form's pair tests: {bound_ms(0, 8 * pairs_dense)[0]:.4f} ms", flush=True)
+    del cand, masked_k, keep_p, masked_p
+
+    # Kernel 3 on the plain twins' stacks and keypoints.
     kps = detect(find_candidates_oct(fields, ss), fields, ss)
     ang_k, desc_k = describe(kps, lvl_oct, ss, ds)
     ang_p, desc_p = describe_plain(kps, lvl_oct, ss, ds)
@@ -2322,7 +2356,7 @@ def main() -> int:
     n_batches = len(frame_sets)
     fps_of = {}
     launches = run_batches(config, "main path")
-    expect = {"base_stage": 1, "fused_octave": len(groups), "describe": 1, "match": 1}
+    expect = {"base_stage": 1, "fused_octave": len(groups), "describe": 1, "match": 1, "nms": 1}
     for name, per in expect.items():
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched by the main path")
@@ -2508,6 +2542,8 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": t, "bound_by": by, "library_ms": r.get("library_ms"),
             "wrapper_ms": r["wrapper_ms"], "global_launches": r["global_launches"],
+            "video_launches": sequence["video"]["launches"].get(name, 0),
+            "two_view_launches": sequence["two_view"]["launches"].get(name, 0),
             "sfm_cli_launches": sfm_launches.get(name, 0),
             "parallel_launches": parallel["parallel"]["launches"].get(name, 0),
             "oracle_launches": oracles["oracles"]["launches"].get(name, 0),
