@@ -3,7 +3,11 @@
 //
 // Replaces akaze_tpu/kernels/match_pallas.py :: match_reduce
 // (_match_kernel).  One launch covers all P descriptor pairs (the JAX
-// package vmaps the kernel over pairs).
+// package vmaps the kernel over pairs).  A pair reads its A and B sides
+// either as entry p of (P, K, 16) stacks, or through a pair table: two
+// index arrays ia, ib (the columns of a row-major (P, 2) int32 table, entry
+// p at [2 p]) into sets of N views, so that matching a set of views over a
+// list of pairs needs no gathered copy of either side.
 //
 // Bound: operations.  Every distance that an output depends on is a 512-bit
 // Hamming distance, and the inputs are ~130 KB per pair.  The distance is an
@@ -111,7 +115,8 @@ __device__ __forceinline__ void merge_best(int& b, int& a, int& s, int ob, int o
 
 __global__ void __launch_bounds__(THREADS) match_kernel(
     const int* __restrict__ da, const unsigned char* __restrict__ va,
-    const int* __restrict__ db, const unsigned char* __restrict__ vb, int Ka, int Kb,
+    const int* __restrict__ db, const unsigned char* __restrict__ vb,
+    const int* __restrict__ ia, const int* __restrict__ ib, int Ka, int Kb,
     int* __restrict__ best, int* __restrict__ second, int* __restrict__ nn,
     unsigned* __restrict__ colkey) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -124,14 +129,18 @@ __global__ void __launch_bounds__(THREADS) match_kernel(
   int* rst = pen + TC;                // row states of warp column 1: best, nn, second
 
   const int pair = blockIdx.y, r0 = blockIdx.x * TR;
+  // The views this pair reads: through the pair table where given, else
+  // entry `pair` of each side.  Outputs are indexed by pair either way.
+  const size_t ea = ia != nullptr ? ia[2 * pair] : pair;
+  const size_t eb = ib != nullptr ? ib[2 * pair] : pair;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wr = warp >> 1, wc = warp & 1;  // warp block: rows 32 wr.., columns 64 wc..
   const int g = lane >> 2, t = lane & 3;    // mma fragment: group, thread in group
 
-  stage(da + ((size_t)pair * Ka + r0) * WORDS, min(TR, Ka - r0), TR, sa, pa);
+  stage(da + (ea * Ka + r0) * WORDS, min(TR, Ka - r0), TR, sa, pa);
   int rv = 0;
   if (tid < TR) {
-    rv = r0 + tid < Ka && va[(size_t)pair * Ka + r0 + tid];
+    rv = r0 + tid < Ka && va[ea * Ka + r0 + tid];
     sva[tid] = rv;
   }
   const bool rowany = __syncthreads_or(rv);
@@ -148,12 +157,12 @@ __global__ void __launch_bounds__(THREADS) match_kernel(
     }
 
   for (int c0 = 0; c0 < Kb; c0 += TC) {
-    const int cv = c0 + tid < Kb && vb[(size_t)pair * Kb + c0 + tid];
+    const int cv = c0 + tid < Kb && vb[eb * Kb + c0 + tid];
     // Also the barrier after the previous tile's last reads of sb.
     const bool colany = __syncthreads_or(cv);
     if (!rowany && !colany) continue;
     pen[tid] = cv ? 0 : BIG;
-    stage(db + ((size_t)pair * Kb + c0) * WORDS, min(TC, Kb - c0), TC, sb, pb);
+    stage(db + (eb * Kb + c0) * WORDS, min(TC, Kb - c0), TC, sb, pb);
     __syncthreads();
 
     int acc[2][8][4];
@@ -287,19 +296,23 @@ __global__ void finish_columns_kernel(const unsigned* keys, int* colmin, int* co
 
 // da (P, Ka, 16) / db (P, Kb, 16) int32, 16-byte aligned, va (P, Ka) / vb
 // (P, Kb) bool -> best, second, nn (P, Ka) and colmin, colarg (P, Kb) int32;
-// colkey is (P, Kb) uint32 scratch.  Requires Ka <= 65536 and P <= 65535.
+// colkey is (P, Kb) uint32 scratch.  With a pair table, ia and ib are its
+// columns (entry p at [2 p], each within its set) and da / va hold the
+// A set's views (NA, Ka, ...), db / vb the B set's; null ia and ib read pair
+// p of each side.  The host checks the table's range.  Requires Ka <= 65536
+// and P <= 65535.
 extern "C" int match_reduce(const int* da, const unsigned char* va, const int* db,
-                            const unsigned char* vb, int P, int Ka, int Kb, int* best,
-                            int* second, int* nn, int* colmin, int* colarg, unsigned* colkey,
-                            void* stream) {
+                            const unsigned char* vb, const int* ia, const int* ib, int P, int Ka,
+                            int Kb, int* best, int* second, int* nn, int* colmin, int* colarg,
+                            unsigned* colkey, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (Ka > 65536 || P > 65535) return (int)cudaErrorInvalidValue;
   if (P == 0) return 0;
   const int ncol = P * Kb;
   if (ncol > 0) init_keys_kernel<<<(ncol + 255) / 256, 256, 0, st>>>(colkey, ncol);
   if (Ka > 0)
-    match_kernel<<<dim3((Ka + TR - 1) / TR, P), THREADS, SMEM_BYTES, st>>>(da, va, db, vb, Ka, Kb, best,
-                                                                          second, nn, colkey);
+    match_kernel<<<dim3((Ka + TR - 1) / TR, P), THREADS, SMEM_BYTES, st>>>(da, va, db, vb, ia, ib, Ka, Kb,
+                                                                          best, second, nn, colkey);
   if (ncol > 0)
     finish_columns_kernel<<<(ncol + 255) / 256, 256, 0, st>>>(colkey, colmin, colarg, ncol);
   return (int)cudaGetLastError();

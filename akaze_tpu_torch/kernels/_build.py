@@ -13,7 +13,10 @@ shared memory; `build` returns that report with each library it built.
 
 `launches` holds one plain integer per kernel wrapper: the wrapper adds
 one where it launches its kernel and nowhere else, so a run can show that
-its path went through the kernels.
+its path went through the kernels.  `counts` holds host-side counts of
+the work those launches were given, reckoned from shapes (no device read):
+`match_pairs`, the pairs kernel 4 was launched over, and
+`match_slot_pairs`, their P * Ka * Kb (row, column) slot pairs.
 """
 
 from __future__ import annotations
@@ -41,13 +44,17 @@ launches = {
     "fused_level": 0, "gather_patches": 0, "describe_pallas": 0, "nms": 0,
 }
 
+counts = {"match_pairs": 0, "match_slot_pairs": 0}
+
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    """Zero `launches` and `counts`."""
+    for table in (launches, counts):
+        for name in table:
+            table[name] = 0
 
 
 def _nvcc() -> str:

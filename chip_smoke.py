@@ -24,7 +24,11 @@
    (kernels/fed.py level_plan, which kernel 5 follows too) and the byte
    floor of a level-at-a-time design; a line before the kernels line gives
    the __global__ launches and device time of kernel 2 per batch and of
-   kernel 5 per VGA frame.
+   kernel 5 per VGA frame.  Kernel 4 also runs over a pair table (every
+   pair of the batch's first 16 frames as one set of views), which must
+   equal its plain twin over the same table and the kernel over the
+   gathered copies bit for bit in one launch, and `match` over that table
+   must be one launch per call and equal its plain twin.
 3. Drives the main path through its public entry points at full width:
    extract_batch on batch x 640x480 frames with the default AkazeConfig,
    then consecutive-pair match with the default MatchConfig; 1 warm-up and
@@ -62,6 +66,16 @@
    against the reference bound (rotation <= 1.5 deg, t-direction <= 6 deg,
    >= 30 inliers), and seed 6's card pose against the CPU pose on the same
    correspondences and random scores.
+6b. Photogrammetry stills at the sizes of the strecha_dslr cell: one
+   3072x2048 frame (benchmark/scenes/textured_pan.py) through extract_batch
+   with 8,192 keypoints and 2,048 candidates per level, one launch each of
+   kernels 1 and 3 and the NMS kernel and one kernel-2 launch per octave,
+   bit-equal to extract_batch_fn(plain=True) (the NMS kernel's multi-window
+   path on real candidates); then all 435 pairs of 30 views of 8,192
+   synthetic slots through one pair table: match_reduce and match each one
+   kernel-4 launch, equal to their plain twins over the same table on 10
+   rows drawn from a fixed seed and on (0, 1), (0, 15) and the last pair,
+   and kernel 4's time by CUDA events beside its operation bound.
 
 7. SfM (BASELINE config 5): run_incremental on sfm_scene(50, 600, seed 0,
    noise 5e-4) with SfmConfig(ba_iterations=8), RansacConfig(256, 5e-3),
@@ -136,7 +150,7 @@
    must carry a finite positive value, and the baseline must be the native
    one where g++ is present.
 
-Prints a JSON line of the sequence and two-view numbers, one of the SfM
+Prints a JSON line of the sequence, two-view and stills numbers, one of the SfM
 numbers, one of the parallel paths' numbers, one of phase 9's, one of
 phase 10's, a JSON line of per-kernel numbers (with each kernel's launches
 on phase 8's paths, all ranks, on phase 9's and on phase 10a's), the card
@@ -619,6 +633,131 @@ def phase_two_view(torch, np, dev, reset_counts, out: dict) -> None:
         "linalg_ms": lin_ms, "linalg_calls_ms": lin,
         "launches": counts, "accuracy": errors,
     }
+
+
+def stills_descriptors(torch, n: int, k: int, dev, seed: int):
+    """n views of k descriptors (16 int32 words, 486 bits), each a shuffled
+    copy of one pool of k rows with each bit flipped with chance 40 / 486,
+    so that every pair shares correspondences; 85 % of the slots valid and
+    view 1 with none."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    pool = torch.randint(0, 2**32, (k, 16), generator=gen, device=dev, dtype=torch.int64)
+    flips = (torch.rand((n, k, 16, 32), generator=gen, device=dev) < 40 / 486).long()
+    flips = (flips << torch.arange(32, device=dev)).sum(-1)
+    desc = torch.stack([pool[torch.randperm(k, generator=gen, device=dev)] for _ in range(n)]) ^ flips
+    desc[..., -1] &= (1 << 6) - 1
+    desc = torch.where(desc >= 2**31, desc - 2**32, desc).to(torch.int32).contiguous()
+    valid = torch.rand((n, k), generator=gen, device=dev) < 0.85
+    valid[1] = False
+    return desc, valid
+
+
+def phase_stills(torch, np, dev, reset_counts, out: dict) -> None:
+    """Phase 6b: the photogrammetry stills of strecha_dslr at their own
+    sizes (see the module doc)."""
+    from akaze_tpu_torch.core.config import AkazeConfig, MatchConfig
+    from akaze_tpu_torch.frontend.pipeline import extract_batch, extract_batch_fn
+    from akaze_tpu_torch.kernels import _build
+    from akaze_tpu_torch.kernels.match import match_reduce, match_reduce_plain, pair_table
+    from akaze_tpu_torch.matching.hamming import match, match_fn
+    from benchmark.scenes.textured_pan import textured_scene
+
+    H, W, N, K = 2048, 3072, 30, 8192
+    config, mcfg = AkazeConfig(max_keypoints=K, per_level_candidates=2048), MatchConfig()
+    pair_list = [(i, j) for i in range(N) for j in range(i + 1, N)]
+    P = len(pair_list)
+    print(f"\n== stills: one {W}x{H} frame at {K} keypoints / {config.per_level_candidates} candidates per level, "
+          f"then all {P} pairs of {N} views of {K} slots through one pair table", flush=True)
+    t_phase = time.perf_counter()
+
+    # One frame through the kernels against the same frame through the twins.
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    frame = torch.round(textured_scene(H, W, gen, dev) * 255.0).to(torch.uint8)[None]
+    extract_batch(frame, config, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    fk = extract_batch(frame, config, device=dev)
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    launched = dict(counts)  # over the phase's checked calls
+    want = {"base_stage": 1, "fused_octave": 4, "nms": 1, "describe": 1}
+    if any(counts.get(name) != n for name, n in want.items()):
+        fail(f"stills: extract_batch of one {W}x{H} frame launched {counts}, expected {want}")
+    fp = extract_batch_fn(frame, config, plain=True)
+    fields = ("x", "y", "response", "size", "octave", "class_id", "angle", "valid")
+    differ = [f for f in fields if not torch.equal(getattr(fk.keypoints, f), getattr(fp.keypoints, f))]
+    differ += [] if torch.equal(fk.descriptors, fp.descriptors) else ["descriptors"]
+    n_valid = int(fk.keypoints.valid.sum())
+    print(f"extract_batch at {W}x{H}: {n_valid} valid of {K} slots, {extract_s * 1e3:.2f} ms wall, launches "
+          f"{counts}; against the plain twins: {'bit-equal' if not differ else 'DIFFERENT in ' + ', '.join(differ)}",
+          flush=True)
+    if differ:
+        fail(f"stills: extract_batch at {W}x{H} differs from the plain twins in {differ} (bit-equality required)")
+    del fk, fp, frame
+    torch.cuda.empty_cache()
+
+    # All pairs of N views of K slots: kernel 4 over the pair table in one
+    # launch, against the plain twin over the same table on seeded rows.
+    d, v = stills_descriptors(torch, N, K, dev, seed=5)
+    host_table = torch.tensor(pair_list, dtype=torch.int32)
+    table = pair_table(host_table, N, N, dev)
+    rows = sorted({0, pair_list.index((0, N // 2)), P - 1}
+                  | set(torch.randperm(P, generator=torch.Generator().manual_seed(20))[:10].tolist()))
+    sub = torch.tensor([pair_list[p] for p in rows], dtype=torch.int32)
+    at = torch.tensor(rows, device=dev)
+    match_reduce(d, v, d, v, table)
+    torch.cuda.synchronize()
+    reset_counts()
+    got = match_reduce(d, v, d, v, table)
+    torch.cuda.synchronize()
+    if _build.launches["match"] != 1:
+        fail(f"stills: match_reduce over {P} pairs launched kernel 4 {_build.launches['match']} times, expected 1")
+    launched["match"] = launched.get("match", 0) + 1
+    if _build.counts["match_pairs"] != P or _build.counts["match_slot_pairs"] != P * K * K:
+        fail(f"stills: pair counters {_build.counts['match_pairs']} / {_build.counts['match_slot_pairs']}, expected "
+             f"{P} / {P * K * K}")
+    plain = match_reduce_plain(d, v, d, v, sub)
+    for name, g, r in zip(("best", "second", "nn", "colmin", "colarg"), got, plain):
+        if not torch.equal(g[at], r):
+            fail(f"stills: match_reduce over the pair table: {name} differs from its plain twin on rows {rows}")
+    reduce_ms = back_to_back_ms(torch, lambda: match_reduce(d, v, d, v, table), n=10)
+    # Kernel 4's work as phase 2 counts it, over the table's pairs.
+    a, b = table[:, 0].long(), table[:, 1].long()
+    n_valid_views = v.sum(1).double()
+    na, nb = n_valid_views[a], n_valid_views[b]
+    n_dist = float((K * nb + na * K - na * nb).sum().item())
+    bound = 1024 * n_dist / INT8_OPS_PER_S * 1e3
+    print(f"match_reduce over {P} pairs of {K} slots: one launch, rows {rows} equal to the plain twin; "
+          f"{reduce_ms:.3f} ms per call (CUDA events, 10 back-to-back), {n_dist / 1e9:.3f} G distances, operation "
+          f"bound {bound:.3f} ms ({100 * bound / reduce_ms:.1f} % reached)", flush=True)
+
+    match(d, v, d, v, mcfg, device=dev, pairs=host_table)
+    torch.cuda.synchronize()
+    reset_counts()
+    m = match(d, v, d, v, mcfg, device=dev, pairs=host_table)
+    torch.cuda.synchronize()
+    if _build.launches["match"] != 1:
+        fail(f"stills: match over {P} pairs launched kernel 4 {_build.launches['match']} times, expected 1")
+    launched["match"] += 1
+    mp = match_fn(d, v, d, v, mcfg, plain=True, pairs=sub)
+    if not all(torch.equal(getattr(m, key)[at], getattr(mp, key)) for key in ("idx_b", "distance", "accepted")):
+        fail(f"stills: match over the pair table differs from its plain twin on rows {rows}")
+    accepted = int(m.accepted.sum())
+    print(f"match over {P} pairs: one launch, {accepted} accepted, rows {rows} equal to the plain twin", flush=True)
+    if accepted == 0:
+        fail("stills: match over the pair table accepted nothing")
+    out["stills"] = {
+        "frame": [W, H], "max_keypoints": K, "valid": n_valid, "extract_ms": extract_s * 1e3,
+        "views": N, "pairs": P, "match_reduce_ms": reduce_ms, "match_bound_ms": bound, "accepted": accepted,
+        "checked_rows": rows, "launches": launched, "phase_s": time.perf_counter() - t_phase,
+    }
+    del d, v, got, plain, m, mp
+    torch.cuda.empty_cache()
+    print(f"phase 6b: {out['stills']['phase_s']:.1f} s", flush=True)
 
 
 def revisit_frames(np, textured_scene, T: int, H: int, W: int):
@@ -1948,7 +2087,7 @@ def main() -> int:
             fused_level_batched_plain, fused_octave, fused_octave_plain, octave_groups, specs_plan,
             unpack_sub,
         )
-        from akaze_tpu_torch.kernels.match import match_reduce, match_reduce_plain
+        from akaze_tpu_torch.kernels.match import match_reduce, match_reduce_plain, pair_table
         from akaze_tpu_torch.kernels.nms import cross_level_nms, cross_level_nms_plain
         from akaze_tpu_torch.kernels.patch import gather_patches, gather_patches_plain
         from akaze_tpu_torch.matching.hamming import match, match_fn
@@ -2192,6 +2331,43 @@ def main() -> int:
     record("match", source="akaze_tpu_torch/csrc/match.cu",
            replaces="akaze_tpu/kernels/match_pallas.py:95", max_abs_err=0.0, **tm4,
            plain_ms=plain4, bound=bound_ms(bytes4, 1024 * n_dist, INT8_OPS_PER_S))
+
+    # Kernel 4 over a pair table: the batch as one set of views, every pair
+    # i < j of its first 16 frames (and a view against itself) read through
+    # the table in one launch, bit-equal to the plain twin over the same
+    # table and to the kernel over the gathered (P, K, 16) copies; `match`
+    # over the same table is one launch per call and equals its plain twin.
+    views = min(B, 16)
+    pair_list = [(i, j) for i in range(views) for j in range(i + 1, views)] + [(views - 1, views - 1)]
+    host_table = torch.tensor(pair_list, dtype=torch.int32)
+    sa, sv = desc_p.contiguous(), v.contiguous()
+    table = pair_table(host_table, B, B, dev)
+    ta, tb = table[:, 0].long(), table[:, 1].long()
+    gathered = match_reduce(sa[ta].contiguous(), sv[ta].contiguous(), sa[tb].contiguous(), sv[tb].contiguous())
+    plain = match_reduce_plain(sa, sv, sa, sv, host_table)
+    before = _build.launches["match"]
+    got = match_reduce(sa, sv, sa, sv, table)
+    torch.cuda.synchronize()
+    if _build.launches["match"] != before + 1:
+        fail(f"match_reduce over a pair table launched kernel 4 {_build.launches['match'] - before} times, expected 1")
+    for name, g, r, q in zip(("best", "second", "nn", "colmin", "colarg"), got, plain, gathered):
+        if not torch.equal(g, r):
+            fail(f"match_reduce over a pair table: {name} differs from its plain twin (exact equality required)")
+        if not torch.equal(g, q):
+            fail(f"match_reduce over a pair table: {name} differs from the gathered form (exact equality required)")
+    before = _build.launches["match"]
+    m_table = match(sa, sv, sa, sv, mcfg, device=dev, pairs=host_table)
+    torch.cuda.synchronize()
+    if _build.launches["match"] != before + 1:
+        fail(f"match over a pair table launched kernel 4 {_build.launches['match'] - before} times, expected 1")
+    m_plain = match_fn(sa, sv, sa, sv, mcfg, plain=True, pairs=host_table)
+    m_gathered = match_fn(sa[ta].contiguous(), sv[ta].contiguous(), sa[tb].contiguous(), sv[tb].contiguous(), mcfg)
+    for other, what in ((m_plain, "its plain twin"), (m_gathered, "the gathered form")):
+        if not all(torch.equal(getattr(m_table, k), getattr(other, k)) for k in ("idx_b", "distance", "accepted")):
+            fail(f"match over a pair table differs from {what}")
+    print(f"match_reduce over a pair table, {len(pair_list)} pairs of {views} views: all five vectors equal to the "
+          f"plain twin over the table and to the gathered form, one launch; match over the table: "
+          f"{int(m_table.count().sum())} accepted, equal to its plain twin, one launch", flush=True)
 
     # Kernel 7 on the live chunks of path A's describe at this batch: the
     # per-octave planes restacked and the chunk slots cut as the chunked
@@ -2504,6 +2680,7 @@ def main() -> int:
     sequence = {}
     phase_video(torch, np, dev, reset_counts, sequence)
     phase_two_view(torch, np, dev, reset_counts, sequence)
+    phase_stills(torch, np, dev, reset_counts, sequence)
     print(json.dumps({"sequence_two_view": sequence}), flush=True)
 
     # ------------------------------------------------------------ phase 7
@@ -2544,6 +2721,7 @@ def main() -> int:
             "wrapper_ms": r["wrapper_ms"], "global_launches": r["global_launches"],
             "video_launches": sequence["video"]["launches"].get(name, 0),
             "two_view_launches": sequence["two_view"]["launches"].get(name, 0),
+            "stills_launches": sequence["stills"]["launches"].get(name, 0),
             "sfm_cli_launches": sfm_launches.get(name, 0),
             "parallel_launches": parallel["parallel"]["launches"].get(name, 0),
             "oracle_launches": oracles["oracles"]["launches"].get(name, 0),
