@@ -1,12 +1,13 @@
 """Scale-space extrema detection on the per-octave detect fields
 (counterpart of the JAX package's `akaze_tpu/frontend/detect.py`).
 
-Candidates are the exact per-level top-K of the candidate scores; a
-symmetric cross-level NMS suppresses a candidate P when some candidate Q on
-the same or an adjacent level lies within r = 0.5 * size[max(level_P,
-level_Q)] and beats P on (response, earlier level-major raster order)
-(`kernels/nms.py`: one CUDA launch on the card); the global top-M of the
-survivors is refined from the packed sub-pixel field.
+Candidates are the exact per-level top-K of the candidate scores
+(`kernels/topk.py`: one CUDA launch on the card); a symmetric cross-level
+NMS suppresses a candidate P when some candidate Q on the same or an
+adjacent level lies within r = 0.5 * size[max(level_P, level_Q)] and beats
+P on (response, earlier level-major raster order) (`kernels/nms.py`: one
+CUDA launch on the card); the global top-M of the survivors is refined
+from the packed sub-pixel field.
 `detect_dense` is the same selection on the padded (L, H0, W0) Ldet stacks
 of the per-level build (the JAX package's `detect` with cand=None): strict
 3x3 maxima above threshold inside each level's border, exact top-K per
@@ -14,8 +15,9 @@ padded level plane, and the quadratic sub-pixel fit on Ldet itself.
 
 Every top-K here is exact and breaks ties by the lower index first, as
 `lax.top_k` does: each selection runs `torch.topk` on unique int64 keys
-(order-preserving score bits, then the reversed index), so the CPU and the
-card pick the same slots.
+(order-preserving score bits, then the reversed index), or, for the
+per-level candidates on the card, the kernel on the same order, so the CPU
+and the card pick the same slots.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from akaze_tpu_torch.core.types import Keypoints
 from akaze_tpu_torch.frontend.scale_space import ScaleSpaceStatics
 from akaze_tpu_torch.kernels.fed import NEG, octave_groups, unpack_sub
 from akaze_tpu_torch.kernels.nms import cross_level_nms
+from akaze_tpu_torch.kernels.topk import per_level_topk
 
 
 def _topk_stable(values: torch.Tensor, k: int):
@@ -46,25 +49,7 @@ def find_candidates_oct(oct_fields, statics: ScaleSpaceStatics) -> dict:
     """Per-level top-K candidates from per-octave level-major (n, B, h, w)
     score fields.  Returns (B, L, K) "resp", "yi", "xi" (level pixels),
     "flat" (index into the octave-0-sized plane) and "valid"."""
-    K = statics.config.per_level_candidates
-    w0 = statics.w0
-    resp_g, yi_g, xi_g = [], [], []
-    for (_, n, h, w), prod in zip(octave_groups(statics), oct_fields):
-        score = prod["score"]
-        B = score.shape[1]
-        flat = score.reshape(n * B, h * w)
-        k = min(K, h * w)
-        resp, idx = _topk_stable(flat, k)
-        if k < K:
-            resp = torch.nn.functional.pad(resp, (0, K - k), value=NEG)
-            idx = torch.nn.functional.pad(idx, (0, K - k))
-        resp_g.append(resp.reshape(n, B, K).transpose(0, 1))
-        yi_g.append(torch.div(idx, w, rounding_mode="floor").reshape(n, B, K).transpose(0, 1))
-        xi_g.append((idx % w).reshape(n, B, K).transpose(0, 1))
-    resp = torch.cat(resp_g, dim=1)
-    yi = torch.cat(yi_g, dim=1).to(torch.int32)
-    xi = torch.cat(xi_g, dim=1).to(torch.int32)
-    return {"resp": resp, "yi": yi, "xi": xi, "flat": yi * w0 + xi, "valid": resp > NEG}
+    return per_level_topk([prod["score"] for prod in oct_fields], statics)
 
 
 def subpixel_from_fields_oct(lvl, xi, yi, oct_fields, statics: ScaleSpaceStatics):

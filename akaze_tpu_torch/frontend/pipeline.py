@@ -54,11 +54,12 @@ def _as_tensor(frames, device: torch.device) -> torch.Tensor:
 def extract_batch_fn(imgs: torch.Tensor, config: AkazeConfig, plain: bool = False) -> Features:
     """Batched pipeline on a (B, H, W) tensor on its device (the JAX
     package's TPU branch): per-octave scale space (kernels 1-2), detection
-    (PyTorch ops and the NMS kernel), description on the branch `config.describe_backend`
-    picks (kernel 3, or kernel 7 and PyTorch ops).  plain=True runs the
-    plain twins of kernels 1-7 on any device (for comparisons); the
-    cross-level NMS in detection runs its kernel on CUDA tensors whatever
-    the flag (held to its plain form in tests/test_torch_nms.py and
+    (the top-K and NMS kernels and PyTorch ops), description on the branch
+    `config.describe_backend` picks (kernel 3, or kernel 7 and PyTorch ops).
+    plain=True runs the plain twins of kernels 1-7 on any device (for
+    comparisons); the per-level top-K and the cross-level NMS in detection
+    run their kernels on CUDA tensors whatever the flag (held to their plain
+    forms in tests/test_torch_topk.py, tests/test_torch_nms.py and
     chip_smoke.py phase 2)."""
     imgs = _as_unit_gray(imgs).contiguous()
     height, width = imgs.shape[-2], imgs.shape[-1]

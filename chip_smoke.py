@@ -4,15 +4,16 @@
     python3 chip_smoke.py [--batch 128] [--reps 3]
 
 1. Prints the card (nvidia-smi name and power limit), the torch / CUDA /
-   nvcc versions, and builds the seven kernels and the NMS kernel from
+   nvcc versions, and builds the seven kernels, the NMS and the top-K kernel from
    akaze_tpu_torch/csrc (all nvcc processes in parallel), timing the build
    and printing each __global__ function's registers and spills as ptxas
    reports them.
 2. Holds each kernel against its plain PyTorch twin on the card, on the
-   inputs its path gives it (kernels 1-4, 7 and the NMS: batch VGA frames;
-   kernels 5 and 6: single VGA frames of the per-level path), with the
-   stated tolerances (kernels 1, 3, 4, 6, 7 and the NMS bit for bit), and
-   times both.
+   inputs its path gives it (kernels 1-4, 7, the NMS and the top-K: batch
+   VGA frames, the top-K also on 128 KITTI frames; kernels 5 and 6: single
+   VGA frames of the per-level path), with the stated tolerances (kernels
+   1, 3, 4, 6, 7, the NMS and the top-K bit for bit), and times both; the
+   top-K prints its planes by path.
    Kernels 3 and 6 (one CUDA kernel) also print their block shape,
    resident blocks per SM, shared memory and registers.  A
    kernel's `ms` is the device time of its __global__ functions under
@@ -75,7 +76,10 @@
    synthetic slots through one pair table: match_reduce and match each one
    kernel-4 launch, equal to their plain twins over the same table on 10
    rows drawn from a fixed seed and on (0, 1), (0, 15) and the last pair,
-   and kernel 4's time by CUDA events beside its operation bound.
+   and kernel 4's time by CUDA events beside its operation bound; then the
+   per-level top-K kernel on the score fields of 30 such views against its
+   plain form, bit for bit, timed beside its byte bound, its planes by path
+   printed.
 
 7. SfM (BASELINE config 5): run_incremental on sfm_scene(50, 600, seed 0,
    noise 5e-4) with SfmConfig(ba_iterations=8), RansacConfig(256, 5e-3),
@@ -240,6 +244,38 @@ def back_to_back_ms(torch, fn, n: int = 50) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / n
+
+
+def topk_check(torch, stacks, ss, what: str) -> dict:
+    """The per-level top-K kernel against its plain form on per-octave score
+    stacks, all five leaves bit for bit, one launch; its planes by path,
+    bytes (every score read, 17 B written per slot) and time per call
+    (CUDA events, 10 back-to-back)."""
+    from akaze_tpu_torch.kernels import _build, topk
+
+    before = _build.launches["topk"]
+    got = topk.per_level_topk(stacks, ss)
+    torch.cuda.synchronize()
+    if _build.launches["topk"] != before + 1:
+        fail(f"{what}: per_level_topk launched {_build.launches['topk'] - before} times, expected 1")
+    paths = topk.path_counts()
+    ref = topk.per_level_topk_plain(stacks, ss)
+    differ = [k for k in got if not torch.equal(got[k].view(torch.int32) if k == "resp" else got[k],
+                                                 ref[k].view(torch.int32) if k == "resp" else ref[k])]
+    if differ:
+        fail(f"{what}: per_level_topk differs from its plain form in {differ} (bit-equality required)")
+    B, L, K = got["resp"].shape
+    nbytes = sum(4 * s.numel() for s in stacks) + 17 * B * L * K
+    ms = back_to_back_ms(torch, lambda: topk.per_level_topk(stacks, ss), n=10)
+    t, _ = bound_ms(nbytes, 0)
+    per_plane = torch.cat([(s > -1e38).reshape(s.shape[0] * s.shape[1], -1).sum(-1) for s in stacks]).double()
+    print(f"per_level_topk {what}: five leaves bit-equal to the plain form; planes by path {paths}; entries above "
+          f"NEG per plane mean {per_plane.mean().item():.1f}, max {int(per_plane.max())} (K = {K}); "
+          f"{ms:.4f} ms per call (CUDA events, 10 back-to-back), byte bound {t:.4f} ms "
+          f"({nbytes / 1e9:.3f} GB, {100 * t / ms:.1f} % reached)", flush=True)
+    if paths["general"] != 0:
+        fail(f"{what}: {paths['general']} planes took the top-K's general path on real candidates")
+    return {"paths": paths, "ms": ms, "bound_ms": t, "bytes": nbytes}
 
 
 def bound_ms(nbytes: float, nops: float, ops_per_s: float = FP32_OPS_PER_S):
@@ -435,7 +471,7 @@ def phase_video(torch, np, dev, reset_counts, out: dict) -> None:
         fail("video: unexpected output shapes or keyframes")
     chunks = -(-T // batch)
     expect = {"base_stage": chunks, "fused_octave": 4 * chunks, "describe": chunks, "match": 1 + (T - 1),
-              "nms": chunks}
+              "nms": chunks, "topk": chunks}
     print(f"timed call {wall:.3f} s: {T / wall:.1f} frames/s; {len(res.keyframes)} keyframes; keypoints/frame "
           f"mean {kp_mean:.1f}; accepted matches/pair mean {res.match_counts[1:].mean():.1f}; matches to the "
           f"keyframe mean {res.kf_match_counts[1:].mean():.1f}", flush=True)
@@ -657,8 +693,9 @@ def phase_stills(torch, np, dev, reset_counts, out: dict) -> None:
     """Phase 6b: the photogrammetry stills of strecha_dslr at their own
     sizes (see the module doc)."""
     from akaze_tpu_torch.core.config import AkazeConfig, MatchConfig
-    from akaze_tpu_torch.frontend.pipeline import extract_batch, extract_batch_fn
+    from akaze_tpu_torch.frontend.pipeline import _statics, extract_batch, extract_batch_fn
     from akaze_tpu_torch.kernels import _build
+    from akaze_tpu_torch.kernels.fed import build_scale_space
     from akaze_tpu_torch.kernels.match import match_reduce, match_reduce_plain, pair_table
     from akaze_tpu_torch.matching.hamming import match, match_fn
     from benchmark.scenes.textured_pan import textured_scene
@@ -684,7 +721,7 @@ def phase_stills(torch, np, dev, reset_counts, out: dict) -> None:
     extract_s = time.perf_counter() - t0
     counts = dict(_build.launches)
     launched = dict(counts)  # over the phase's checked calls
-    want = {"base_stage": 1, "fused_octave": 4, "nms": 1, "describe": 1}
+    want = {"base_stage": 1, "fused_octave": 4, "nms": 1, "topk": 1, "describe": 1}
     if any(counts.get(name) != n for name, n in want.items()):
         fail(f"stills: extract_batch of one {W}x{H} frame launched {counts}, expected {want}")
     fp = extract_batch_fn(frame, config, plain=True)
@@ -698,6 +735,17 @@ def phase_stills(torch, np, dev, reset_counts, out: dict) -> None:
     if differ:
         fail(f"stills: extract_batch at {W}x{H} differs from the plain twins in {differ} (bit-equality required)")
     del fk, fp, frame
+    torch.cuda.empty_cache()
+
+    # The per-level top-K on the score fields of N views, the cell's call.
+    ss, _ = _statics(W, H, config)
+    views = torch.stack([torch.round(textured_scene(H, W, gen, dev) * 255.0) / 255.0 for _ in range(N)])
+    stacks = [f["score"] for f in build_scale_space(views, ss)["oct"]]
+    del views
+    torch.cuda.empty_cache()
+    topk_views = topk_check(torch, stacks, ss, f"{N} views at {W}x{H}")
+    launched["topk"] += 1
+    del stacks
     torch.cuda.empty_cache()
 
     # All pairs of N views of K slots: kernel 4 over the pair table in one
@@ -753,7 +801,7 @@ def phase_stills(torch, np, dev, reset_counts, out: dict) -> None:
     out["stills"] = {
         "frame": [W, H], "max_keypoints": K, "valid": n_valid, "extract_ms": extract_s * 1e3,
         "views": N, "pairs": P, "match_reduce_ms": reduce_ms, "match_bound_ms": bound, "accepted": accepted,
-        "checked_rows": rows, "launches": launched, "phase_s": time.perf_counter() - t_phase,
+        "checked_rows": rows, "topk": topk_views, "launches": launched, "phase_s": time.perf_counter() - t_phase,
     }
     del d, v, got, plain, m, mp
     torch.cuda.empty_cache()
@@ -2088,6 +2136,7 @@ def main() -> int:
             unpack_sub,
         )
         from akaze_tpu_torch.kernels.match import match_reduce, match_reduce_plain, pair_table
+        from akaze_tpu_torch.kernels import topk
         from akaze_tpu_torch.kernels.nms import cross_level_nms, cross_level_nms_plain
         from akaze_tpu_torch.kernels.patch import gather_patches, gather_patches_plain
         from akaze_tpu_torch.matching.hamming import match, match_fn
@@ -2239,6 +2288,31 @@ def main() -> int:
     # bit: the survivors' responses, NEG elsewhere.
     lvl_oct = tuple({"Lt": o[0], "Lx": o[1], "Ly": o[2]} for o in oct_p)
     fields = tuple({"score": o[3], "sub": o[4]} for o in oct_p)
+
+    # The per-level top-K kernel on the same score fields, then on 128
+    # KITTI frames' (the batch cells' shapes), all leaves bit for bit.
+    stacks = [f["score"] for f in fields]
+    tk = topk_check(torch, stacks, ss, f"batch {B} VGA")
+    tm_topk = times(lambda: topk.per_level_topk(stacks, ss))
+    plain_topk = timed(torch, lambda: topk.per_level_topk_plain(stacks, ss), reps=1)
+    keys = []  # the int64 keys that the plain form's torch.topk ranks
+    for (_, n, h, w), st in zip(groups, stacks):
+        bits = st.reshape(n * B, h * w).view(torch.int32).to(torch.int64)
+        idx = torch.arange(h * w, device=dev, dtype=torch.int64)
+        keys.append((torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF) * (1 << 32) + (h * w - 1 - idx),
+                     min(config.per_level_candidates, h * w)))
+        del bits
+    library_topk = timed(torch, lambda: [torch.topk(key, kk, dim=-1, sorted=True) for key, kk in keys], reps=1)
+    del keys
+    record("topk", source="akaze_tpu_torch/csrc/topk.cu", replaces="none (port-only)", max_abs_err=0.0,
+           **tm_topk, plain_ms=plain_topk, library_ms=library_topk, bound=bound_ms(tk["bytes"], 0))
+    ss_kitti, _ = _statics(1241, 376, config)
+    imgs_kitti = torch.from_numpy(video_sequence(B, 376, 1241, seed=101)).to(dev)
+    topk_check(torch, [f["score"] for f in fed_kernels.build_scale_space(imgs_kitti, ss_kitti)["oct"]], ss_kitti,
+               f"batch {B} KITTI 1241x376")
+    del imgs_kitti, stacks
+    torch.cuda.empty_cache()
+
     cand = find_candidates_oct(fields, ss)
     masked_k = cross_level_nms(cand, ss)
     keep_p = cross_level_nms_plain(cand, ss)
@@ -2532,7 +2606,7 @@ def main() -> int:
     n_batches = len(frame_sets)
     fps_of = {}
     launches = run_batches(config, "main path")
-    expect = {"base_stage": 1, "fused_octave": len(groups), "describe": 1, "match": 1, "nms": 1}
+    expect = {"base_stage": 1, "fused_octave": len(groups), "describe": 1, "match": 1, "nms": 1, "topk": 1}
     for name, per in expect.items():
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched by the main path")

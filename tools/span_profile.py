@@ -11,7 +11,8 @@ it runs `--calls` calls under a `utils.profiling.SpanRecorder` (each
 span's CUDA-event ms and self ms per call), and `--profile-calls` calls
 under torch.profiler, reduced by `benchmark/harness/spans.py` (idle
 seconds, device operations and their device seconds by the innermost span,
-per call).  Prints one JSON line, with the card's name and power limit.
+per call), and the last call's per-level top-K planes by path.  Prints one
+JSON line, with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from benchmark.harness import runner, spans, spec, stats
+    from akaze_tpu_torch.kernels import topk
     from akaze_tpu_torch.utils.profiling import SpanRecorder, record_spans
 
     if not torch.cuda.is_available():
@@ -90,6 +92,7 @@ def main(argv=None) -> int:
         "profiled_calls": n, "wall_s": wall, "busy_s": stats.union_s([(a, b) for a, b, _ in ops]) / 1e6,
         "launches_per_call": len(ops) / n, "unlinked_share": unlinked / len(ops) if ops else None,
         "by_span": [[name, idle / n, count / n, device / n] for name, idle, count, device in rows],
+        "topk_paths": topk.path_counts(),  # the last call's per-level top-K planes by path
     }), flush=True)
     return 0
 
