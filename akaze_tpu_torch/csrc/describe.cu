@@ -27,7 +27,7 @@
 //     100-member cells in 4 parts, the 3x3 grid's 49 in 2), then per
 //     (cell, channel) the part sums added in part order;
 //   bits: 486 comparisons over the block, packed by __ballot_sync per warp.
-// The sampling tables (kernels/describe.py _host_tables, ~10.5 KB) are copied
+// The sampling tables (kernels/describe.py kernel_table, ~10.5 KB) are copied
 // into shared memory once per block with cp.async.
 //
 // Dead slots: a persistent grid of min(slots, SMs x resident blocks) blocks;
@@ -54,7 +54,7 @@
 // windows and cells in the order described above.
 //
 // Table layout (int32 words, floats by their bits; kernels/describe.py
-// _host_tables):
+// kernel_table):
 //   ori_di, ori_dj, ori_w [n_ori] | win_lo, win_hi, win_wrap [n_win] |
 //   offk, offl [n_samp] | cell weight [n_cells] | cell_start [n_cells + 1] |
 //   cell_first (first task of each cell) [n_cells + 1] | task_cell [n_tasks] |

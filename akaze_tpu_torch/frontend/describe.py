@@ -29,11 +29,10 @@ import torch
 
 from akaze_tpu_torch.core.config import AkazeConfig
 from akaze_tpu_torch.core.types import Features, Keypoints
-from akaze_tpu_torch.frontend.scale_space import ScaleSpaceStatics, per_level_scale, round_half_up
+from akaze_tpu_torch.frontend.scale_space import ScaleSpaceStatics, round_half_up
 from akaze_tpu_torch.kernels.describe import describe as describe_fused
-from akaze_tpu_torch.kernels.describe import describe_from_samples, describe_plain, zero_invalid
+from akaze_tpu_torch.kernels.describe import describe_from_samples, describe_plain, kernel_table, zero_invalid
 from akaze_tpu_torch.kernels.describe_single import describe_pallas, describe_pallas_plain
-from akaze_tpu_torch.kernels.fed import octave_groups
 from akaze_tpu_torch.kernels.patch import gather_patches, gather_patches_plain
 
 # Slots gathered and described together (at 64 x 64 patches, 1.6 GB of
@@ -45,8 +44,26 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+@dataclasses.dataclass(frozen=True)
+class DescribeTables:
+    """The sampling patterns of a `DescribeStatics` on one device."""
+
+    ori_di: torch.Tensor  # (109,) float32 orientation offsets, x
+    ori_dj: torch.Tensor  # (109,) float32 orientation offsets, y
+    ori_w: torch.Tensor  # (109,) float32 orientation weights
+    win_lo: torch.Tensor  # (42,) float32 window bounds
+    win_hi: torch.Tensor
+    win_wrap: torch.Tensor  # (42,) bool
+    all_offk: torch.Tensor  # (S,) float32 M-LDB offsets
+    all_offl: torch.Tensor
+    grids: tuple  # per grid: DescribeStatics.grids' arrays, indices as int64
+    table: torch.Tensor  # kernels 3 and 6's int32 table (`kernel_table`)
+    table_sizes: tuple  # its sizes, host ints
+
+
 class DescribeStatics:
-    """Sampling patterns shared by orientation and M-LDB (numpy)."""
+    """Sampling patterns shared by orientation and M-LDB (numpy), and their
+    device copies (`on`)."""
 
     def __init__(self, config: AkazeConfig, ss_statics: ScaleSpaceStatics):
         self.config = config
@@ -66,6 +83,9 @@ class DescribeStatics:
         # M-LDB grids sample overlapping integer offsets (441 unique of 1241
         # for p = 10): sampling runs once over the unique offsets, and each
         # grid's cell means are a (unique, cells) mean matrix over them.
+        # Kernels 3 and 6 sum each cell's members instead: (cells, m) sample
+        # indices in increasing order (the cells of a grid are equal
+        # squares) and (cells,) mean weights.
         p = config.descriptor_pattern_size
         unique: dict[tuple, int] = {}
         self.grids = []
@@ -88,7 +108,9 @@ class DescribeStatics:
                 mean_mat[u, c] += 1.0
             mean_mat /= mean_mat.sum(axis=0, keepdims=True)
             pa, pb = np.triu_indices(n_cells, k=1)  # a-major pair order
-            self.grids.append(dict(mean_mat=mean_mat, pa=pa.astype(np.int32), pb=pb.astype(np.int32)))
+            members = np.stack([np.nonzero(mean_mat[:, c])[0] for c in range(n_cells)])
+            self.grids.append(dict(mean_mat=mean_mat, pa=pa.astype(np.int32), pb=pb.astype(np.int32),
+                                   members=members, weights=mean_mat[members[:, 0], np.arange(n_cells)]))
         self.total_bits = config.descriptor_bits
         offs = np.array(sorted(unique, key=unique.get), np.float32)
         self.all_offk = offs[:, 0]
@@ -98,29 +120,45 @@ class DescribeStatics:
         # Patch geometry of the non-fused describe: the worst-case reach of
         # any sample (the M-LDB pattern or the orientation circle, plus
         # rounding slack) sizes one (ph, pw) window per keypoint.
-        s_max = int(per_level_scale(ss_statics).max())
+        s_max = int(ss_statics.scale.max())
         reach = int(math.ceil(p * s_max * math.sqrt(2.0))) + 2
         self.reach = max(reach, 6 * s_max + 2)
         self.ph = min(_round_up(2 * self.reach, 8), ss_statics.h0)
         self.pw = min(_round_up(2 * self.reach, 64), ss_statics.w0)
         self.chunk = 256  # keypoint slots per chunk; chunks with no valid slot are skipped
+        self._on = {}
 
+    def on(self, device) -> DescribeTables:
+        """The sampling patterns on `device`: copied there on the first call
+        for that device, then kept as long as the statics."""
+        device = torch.device(device)
+        tables = self._on.get(device)
+        if tables is None:
+            up = lambda a: torch.as_tensor(a, device=device)
+            # Index arrays as int64, as torch indexes with them.
+            grids = tuple({k: up(v.astype(np.int64) if v.dtype == np.int32 else v) for k, v in g.items()}
+                          for g in self.grids)
+            tab, sizes = kernel_table(self)
+            tables = self._on[device] = DescribeTables(
+                ori_di=up(self.ori_di), ori_dj=up(self.ori_dj), ori_w=up(self.ori_w), win_lo=up(self.win_lo),
+                win_hi=up(self.win_hi), win_wrap=up(self.win_wrap), all_offk=up(self.all_offk),
+                all_offl=up(self.all_offl), grids=grids, table=up(tab), table_sizes=sizes)
+        return tables
 
 
 def chunk_geometry(x, y, class_id, ss: ScaleSpaceStatics, ds: DescribeStatics) -> dict:
     """Per-slot level geometry and patch origins of flat (N,) keypoint
     fields: every clipped sample coordinate lands inside the (ph, pw)
     window at (y0, x0)."""
-    dev = x.device
+    t = ss.on(x.device)
     lvl = class_id.long()
-    table = lambda a: torch.as_tensor(a, device=dev)[lvl]
-    ratios = table(ss.ratios)
-    widths, heights = table(ss.widths), table(ss.heights)
+    ratios = t.ratios[lvl]
+    widths, heights = t.widths[lvl], t.heights[lvl]
     xf, yf = x / ratios, y / ratios
     zero = torch.zeros_like(widths)
     y0 = torch.clamp(round_half_up(yf) - ds.ph // 2, min=zero, max=torch.clamp(heights - ds.ph, min=0))
     x0 = torch.clamp(round_half_up(xf) - ds.pw // 2, min=zero, max=torch.clamp(widths - ds.pw, min=0))
-    return {"lvl": lvl, "scale": table(per_level_scale(ss)).to(torch.float32), "w": widths,
+    return {"lvl": lvl, "scale": t.scale[lvl].to(torch.float32), "w": widths,
             "h": heights, "xf": xf, "yf": yf, "y0": y0, "x0": x0}
 
 
@@ -206,7 +244,7 @@ def restack_levels(lvl_oct, ss: ScaleSpaceStatics) -> dict:
     views of one (3, L, B, H0, W0) tensor)."""
     B = lvl_oct[0]["Lt"].shape[1]
     s3 = lvl_oct[0]["Lt"].new_zeros((3, ss.num_levels, B, ss.h0, ss.w0))
-    for (l0, n, h, w), o in zip(octave_groups(ss), lvl_oct):
+    for (l0, n, h, w), o in zip(ss.groups, lvl_oct):
         for c, key in enumerate(("Lt", "Lx", "Ly")):
             s3[c, l0 : l0 + n, :, :h, :w] = o[key]
     return {"Lt": s3[0], "Lx": s3[1], "Ly": s3[2], "level_major": True}

@@ -14,35 +14,21 @@ of the per-level build (the JAX package's `detect` with cand=None): strict
 padded level plane, and the quadratic sub-pixel fit on Ldet itself.
 
 Every top-K here is exact and breaks ties by the lower index first, as
-`lax.top_k` does: each selection runs `torch.topk` on unique int64 keys
-(order-preserving score bits, then the reversed index), or, for the
-per-level candidates on the card, the kernel on the same order, so the CPU
-and the card pick the same slots.
+`lax.top_k` does: each selection runs `kernels/topk.topk_padded`
+(`torch.topk` on unique int64 keys: order-preserving score bits, then the
+reversed index), or, for the per-level candidates on the card, the kernel
+on the same order, so the CPU and the card pick the same slots.
 """
 
 from __future__ import annotations
-
-import functools
 
 import torch
 
 from akaze_tpu_torch.core.types import Keypoints
 from akaze_tpu_torch.frontend.scale_space import ScaleSpaceStatics
-from akaze_tpu_torch.kernels.fed import NEG, octave_groups, unpack_sub
+from akaze_tpu_torch.kernels.fed import NEG, unpack_sub
 from akaze_tpu_torch.kernels.nms import cross_level_nms
-from akaze_tpu_torch.kernels.topk import per_level_topk
-
-
-def _topk_stable(values: torch.Tensor, k: int):
-    """Top-k along the last axis of float32 `values`, ties to the lower
-    index, as (values, indices) sorted best first."""
-    bits = values.contiguous().view(torch.int32).to(torch.int64)
-    ordered = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)  # float order as int order
-    n = values.shape[-1]
-    index = torch.arange(n, device=values.device, dtype=torch.int64)
-    key = ordered * (1 << 32) + (n - 1 - index)
-    idx = torch.topk(key, k, dim=-1, sorted=True).indices
-    return torch.gather(values, -1, idx), idx
+from akaze_tpu_torch.kernels.topk import per_level_topk, topk_padded
 
 
 def find_candidates_oct(oct_fields, statics: ScaleSpaceStatics) -> dict:
@@ -58,7 +44,7 @@ def subpixel_from_fields_oct(lvl, xi, yi, oct_fields, statics: ScaleSpaceStatics
     B = lvl.shape[0]
     frame = torch.arange(B, device=lvl.device)[:, None].expand_as(lvl)
     packed = torch.full_like(lvl, -1)
-    for (l0, n, h, w), prod in zip(octave_groups(statics), oct_fields):
+    for (l0, n, h, w), prod in zip(statics.groups, oct_fields):
         sel = (lvl >= l0) & (lvl < l0 + n)
         li = torch.clamp(lvl - l0, 0, n - 1).long()
         yc = torch.clamp(yi, 0, h - 1).long()
@@ -68,7 +54,7 @@ def subpixel_from_fields_oct(lvl, xi, yi, oct_fields, statics: ScaleSpaceStatics
     zero = torch.zeros_like(ox)
     ox = torch.where(keep, ox, zero)
     oy = torch.where(keep, oy, zero)
-    ratios = torch.as_tensor(statics.ratios, device=lvl.device)[lvl.long()]
+    ratios = statics.on(lvl.device).ratios[lvl.long()]
     xf = (xi.to(torch.float32) + ox) * ratios
     yf = (yi.to(torch.float32) + oy) * ratios
     return xf, yf, keep
@@ -89,12 +75,6 @@ def _neighbor_max_3x3(ldet: torch.Tensor) -> torch.Tensor:
     return out
 
 
-@functools.lru_cache(maxsize=8)
-def _interior(statics: ScaleSpaceStatics, device: torch.device) -> torch.Tensor:
-    """statics.interior, copied to the device once."""
-    return torch.as_tensor(statics.interior, device=device)
-
-
 def find_candidates(ldet: torch.Tensor, statics: ScaleSpaceStatics) -> dict:
     """Per-level exact top-K of the strict 3x3 maxima above threshold and
     inside the level border, over padded (B, L, H0, W0) Ldet stacks.
@@ -103,13 +83,9 @@ def find_candidates(ldet: torch.Tensor, statics: ScaleSpaceStatics) -> dict:
     cfg = statics.config
     K = cfg.per_level_candidates
     B, L, h0, w0 = ldet.shape
-    cand = (ldet > cfg.detector_threshold) & (ldet > _neighbor_max_3x3(ldet)) & _interior(statics, ldet.device)
+    cand = (ldet > cfg.detector_threshold) & (ldet > _neighbor_max_3x3(ldet)) & statics.on(ldet.device).interior
     scores = torch.where(cand, ldet, torch.full_like(ldet, NEG)).reshape(B * L, h0 * w0)
-    k = min(K, h0 * w0)
-    resp, idx = _topk_stable(scores, k)
-    if k < K:
-        resp = torch.nn.functional.pad(resp, (0, K - k), value=NEG)
-        idx = torch.nn.functional.pad(idx, (0, K - k))
+    resp, idx = topk_padded(scores, K)
     resp, idx = resp.reshape(B, L, K), idx.reshape(B, L, K).to(torch.int32)
     yi = torch.div(idx, w0, rounding_mode="floor")
     return {"resp": resp, "yi": yi, "xi": idx - yi * w0, "flat": idx, "valid": resp > NEG}
@@ -122,12 +98,7 @@ def _top_m(cand: dict, statics: ScaleSpaceStatics):
     masked = cross_level_nms(cand, statics)  # refuses an int32 overflow of the packed key below
     B, L, K = masked.shape
     flat_resp = masked.reshape(B, L * K)
-    M = cfg.max_keypoints
-    k = min(M, L * K)
-    top_resp, order = _topk_stable(flat_resp, k)
-    if k < M:
-        top_resp = torch.nn.functional.pad(top_resp, (0, M - k), value=NEG)
-        order = torch.nn.functional.pad(order, (0, M - k))
+    top_resp, order = topk_padded(flat_resp, cfg.max_keypoints)
     npx = statics.h0 * statics.w0
     w0 = statics.w0
     lvl = torch.arange(L, dtype=torch.int32, device=flat_resp.device)[:, None].expand(L, K)
@@ -140,14 +111,14 @@ def _top_m(cand: dict, statics: ScaleSpaceStatics):
 
 
 def _keypoints(top_resp, class_id, xf, yf, keep, statics: ScaleSpaceStatics) -> Keypoints:
-    dev = class_id.device
+    tables = statics.on(class_id.device)
     cls = class_id.long()
     return Keypoints(
         x=xf,
         y=yf,
         response=top_resp,
-        size=torch.as_tensor(statics.sizes, device=dev)[cls],
-        octave=torch.as_tensor(statics.octaves, device=dev)[cls],
+        size=tables.sizes[cls],
+        octave=tables.octaves[cls],
         class_id=class_id,
         angle=torch.zeros_like(xf),
         valid=(top_resp > NEG) & keep,
@@ -193,7 +164,7 @@ def subpixel_refine(lvl, yi, xi, ldet: torch.Tensor, statics: ScaleSpaceStatics)
     ox = (-dxv * dyy + dyv * dxy) / safe_det
     oy = (-dyv * dxx + dxv * dxy) / safe_det
     keep = ~tiny & (torch.abs(ox) <= 1.0) & (torch.abs(oy) <= 1.0)
-    ratios = torch.as_tensor(statics.ratios, device=ldet.device)[li]
+    ratios = statics.on(ldet.device).ratios[li]
     xf = (xi.to(torch.float32) + ox) * ratios
     yf = (yi.to(torch.float32) + oy) * ratios
     return xf, yf, keep

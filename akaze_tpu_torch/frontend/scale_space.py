@@ -10,6 +10,7 @@ kernels are held against.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Sequence
 
 import numpy as np
@@ -152,14 +153,31 @@ def detector_response_level(lsmooth: torch.Tensor, sigma_size: int):
     return lx * sf, ly * sf, ldet
 
 
+@dataclasses.dataclass(frozen=True)
+class LevelTables:
+    """The per-level tables of a `ScaleSpaceStatics` on one device."""
+
+    ratios: torch.Tensor  # (L,) float32
+    sizes: torch.Tensor  # (L,) float32
+    octaves: torch.Tensor  # (L,) int32
+    widths: torch.Tensor  # (L,) int32
+    heights: torch.Tensor  # (L,) int32
+    scale: torch.Tensor  # (L,) int32, the descriptor's sampling step
+    interior: torch.Tensor  # (L, H0, W0) bool
+    nms: torch.Tensor  # (2, L) float32: ratios, squared dedup radii (the NMS kernel's table)
+    level_f: torch.Tensor  # (L, 4) float32: ratio, scale, xmax, ymax
+    level_i: torch.Tensor  # (L, 2) int64: octave group, plane in the group
+
+
 class ScaleSpaceStatics:
     """Static per-level metadata shared by detection and description
-    (numpy, computed as the JAX package computes it)."""
+    (numpy, computed as the JAX package computes it), and its device copies
+    (`on`)."""
 
     def __init__(self, width: int, height: int, config: AkazeConfig):
         self.config = config
         self.specs: List[EvolutionSpec] = allocate_evolutions(width, height, config)
-        self.num_levels = len(self.specs)
+        self.num_levels = L = len(self.specs)
         self.h0, self.w0 = self.specs[0].height, self.specs[0].width
         self.widths = np.array([s.width for s in self.specs], np.int32)
         self.heights = np.array([s.height for s in self.specs], np.int32)
@@ -169,21 +187,51 @@ class ScaleSpaceStatics:
         self.sigma_sizes = np.array([s.sigma_size for s in self.specs], np.int32)
         self.borders = np.array([s.border for s in self.specs], np.int32)
         self.sizes = (self.esigmas * config.derivative_factor).astype(np.float32)
+        # Reference `scale = max(1, round(0.5 * size / ratio))` per level: the
+        # descriptor's sampling step in level pixels.
+        self.scale = np.maximum(np.floor(0.5 * self.sizes / self.ratios + 0.5).astype(np.int32), 1)
         # (L, H0, W0) mask of the padded stacks: inside each level's border.
         ys = np.arange(self.h0)[None, :, None]
         xs = np.arange(self.w0)[None, None, :]
         b = self.borders[:, None, None]
         self.interior = ((ys >= b) & (ys < self.heights[:, None, None] - b)
                          & (xs >= b) & (xs < self.widths[:, None, None] - b))
+        # Per octave (first level, level count, h, w) of the level list.
+        groups, lvl = [], 0
+        while lvl < L:
+            h, w = int(self.heights[lvl]), int(self.widths[lvl])
+            n = 1
+            while lvl + n < L and int(self.heights[lvl + n]) == h:
+                n += 1
+            groups.append((lvl, n, h, w))
+            lvl += n
+        self.groups = tuple(groups)
+        # Per level (4, L) float32 ratio, scale, xmax = width - 1, ymax =
+        # height - 1, and (2, L) int32 octave group and plane in the group:
+        # the level tables of the describe kernel and its twin.
+        self.level_f = np.stack([self.ratios, self.scale, self.widths - 1, self.heights - 1]).astype(np.float32)
+        self.level_i = np.zeros((2, L), np.int32)
+        for g, (l0, n, _, _) in enumerate(self.groups):
+            self.level_i[0, l0 : l0 + n] = g
+            self.level_i[1, l0 : l0 + n] = np.arange(n)
+        self._on = {}
+
+    def on(self, device) -> LevelTables:
+        """The per-level tables on `device`: copied there on the first call
+        for that device, then kept as long as the statics."""
+        device = torch.device(device)
+        tables = self._on.get(device)
+        if tables is None:
+            up = lambda a: torch.as_tensor(a, device=device)
+            r2 = (self.config.dedup_radius_factor * self.sizes) ** 2
+            tables = self._on[device] = LevelTables(
+                ratios=up(self.ratios), sizes=up(self.sizes), octaves=up(self.octaves), widths=up(self.widths),
+                heights=up(self.heights), scale=up(self.scale), interior=up(self.interior),
+                nms=up(np.stack([self.ratios, r2]).astype(np.float32)), level_f=up(self.level_f.T.copy()),
+                level_i=up(self.level_i.T.astype(np.int64)))
+        return tables
 
 
 def round_half_up(x: torch.Tensor) -> torch.Tensor:
     """floor(x + 0.5) as int32: the reference's sample-coordinate rounding."""
     return torch.floor(x + 0.5).to(torch.int32)
-
-
-def per_level_scale(ss_statics: ScaleSpaceStatics) -> np.ndarray:
-    """Reference `scale = max(1, round(0.5 * size / ratio))` per level: the
-    descriptor's sampling step in level pixels."""
-    s = np.floor(0.5 * ss_statics.sizes / ss_statics.ratios + 0.5).astype(np.int32)
-    return np.maximum(s, 1)

@@ -15,7 +15,7 @@ refit (not normal equations), selection by cheirality count.
 Every function takes float32 tensors on their device; where the JAX
 package vmaps over pairs, `estimate_relative_pose_fn` takes a leading pair
 axis.  Each top-k breaks ties by the lower index, as `lax.top_k` does
-(`frontend/detect._topk_stable`), and `torch.argmax` takes the first
+(`kernels/topk.topk_stable`), and `torch.argmax` takes the first
 maximum, as `jnp.argmax` does.  Importing this module pins float32 matrix
 products on the GPU (no TF32), whatever else was imported before.
 """
@@ -30,7 +30,7 @@ import torch
 
 from akaze_tpu_torch.core.config import RansacConfig
 from akaze_tpu_torch.core.device import resolve_device
-from akaze_tpu_torch.frontend.detect import _topk_stable
+from akaze_tpu_torch.kernels.topk import topk_stable
 from akaze_tpu_torch.utils.profiling import check_no_nan, span
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -171,7 +171,7 @@ def _hypotheses(x1, x2, mask, sample_scores, config: RansacConfig):
     subset of distinct valid slots.  Returns E (P, H, 3, 3), inliers
     (P, H, N) and counts (P, H) against every correspondence."""
     g = torch.where(mask[:, None, :], sample_scores, -1.0)
-    _, idx = _topk_stable(g, config.sample_size)  # (P, H, 8)
+    _, idx = topk_stable(g, config.sample_size)  # (P, H, 8)
     pairs = torch.arange(mask.shape[0], device=mask.device)[:, None, None]
     E = _essential_from_8pt(x1[pairs, idx], x2[pairs, idx])
     inl = _inliers(E, x1, x2, mask, config)
@@ -258,7 +258,7 @@ def estimate_relative_pose_fn(x1, x2, mask, config: RansacConfig, generator=None
         with span("geometry.hypotheses", dev):
             E_h, inl_h, scores = _hypotheses(x1, x2, mask, sample_scores, config)
             M = min(config.refit_beam, config.num_iterations)
-            _, top = _topk_stable(scores.to(torch.float32), M)  # (P, M)
+            _, top = topk_stable(scores.to(torch.float32), M)  # (P, M)
         with span("geometry.refit", dev):
             E, inl, _ = _refit(_take(E_h, top), _take(inl_h, top), _take(scores, top), x1, x2, mask, config)
         with span("geometry.pose", dev):

@@ -24,9 +24,8 @@ import numpy as np
 import torch
 
 from akaze_tpu_torch.core.types import Keypoints
-from akaze_tpu_torch.frontend.scale_space import ScaleSpaceStatics, per_level_scale, round_half_up
+from akaze_tpu_torch.frontend.scale_space import ScaleSpaceStatics, round_half_up
 from akaze_tpu_torch.kernels import _build
-from akaze_tpu_torch.kernels.fed import octave_groups
 
 if TYPE_CHECKING:  # frontend/describe.py imports this module
     from akaze_tpu_torch.frontend.describe import DescribeStatics
@@ -69,39 +68,26 @@ def mod_2pi(a: torch.Tensor) -> torch.Tensor:
     return torch.where(r < 0, r + TWO_PI, r)
 
 
-@functools.lru_cache(maxsize=16)
 def _level_args(ss: ScaleSpaceStatics, single: bool = False):
     """Per-level tables of the kernel: (4, L) float32 ratio, sampling scale,
     xmax = width - 1, ymax = height - 1, and (2, L) int32 octave group and
     plane index in the group: the per-octave (n, B, h, w) stacks, or with
     single=True one frame's padded (L, H0, W0) stacks (one group)."""
-    lv_f = np.stack([ss.ratios, per_level_scale(ss), ss.widths - 1, ss.heights - 1]).astype(np.float32)
-    lv_i = np.stack([np.zeros(ss.num_levels), np.arange(ss.num_levels)]).astype(np.int32)
     if not single:
-        for g, (l0, n, _, _) in enumerate(octave_groups(ss)):
-            lv_i[0, l0 : l0 + n] = g
-            lv_i[1, l0 : l0 + n] = np.arange(n)
-    return lv_f, lv_i
-
-
-@functools.lru_cache(maxsize=16)
-def _level_tensors(ss: ScaleSpaceStatics, device: torch.device):
-    """`_level_args` of the per-octave stacks as (L, 4) float32 and (L, 2)
-    int64 tensors on `device`."""
-    lv_f, lv_i = _level_args(ss)
-    return (torch.as_tensor(lv_f.T.copy(), device=device),
-            torch.as_tensor(lv_i.T.astype(np.int64), device=device))
+        return ss.level_f, ss.level_i
+    return ss.level_f, np.stack([np.zeros(ss.num_levels), np.arange(ss.num_levels)]).astype(np.int32)
 
 
 def keypoint_geometry(kps: Keypoints, ss: ScaleSpaceStatics):
-    """Flat per-keypoint prep: kpf (N, 5) f32 = (xf, yf, scale, xmax, ymax)
-    and kpi (N, 4) i32 = (octave group, level in group, frame, valid)."""
-    B, M = kps.x.shape
-    lv_f, lv_i = _level_tensors(ss, kps.x.device)
+    """Flat per-keypoint prep of (B, M) or (M,) keypoints: kpf (N, 5) f32 =
+    (xf, yf, scale, xmax, ymax) and kpi (N, 4) i32 = (octave group, level in
+    group, frame, valid)."""
+    M = kps.x.shape[-1]
+    tables = ss.on(kps.x.device)
     lvl = kps.class_id.reshape(-1).long()
-    f, i = lv_f[lvl], lv_i[lvl]
+    f, i = tables.level_f[lvl], tables.level_i[lvl]
     kpf = torch.stack([kps.x.reshape(-1) / f[:, 0], kps.y.reshape(-1) / f[:, 0], f[:, 1], f[:, 2], f[:, 3]], dim=1)
-    frame = torch.arange(B * M, device=kps.x.device) // M
+    frame = torch.arange(lvl.numel(), device=kps.x.device) // M
     kpi = torch.stack([i[:, 0], i[:, 1], frame, kps.valid.reshape(-1).long()], dim=1).to(torch.int32)
     return kpf, kpi
 
@@ -125,25 +111,12 @@ def _sample(planes, kpf, kpi, offx, offy):
     return outs
 
 
-@functools.lru_cache(maxsize=8)
-def _cell_members(ds: DescribeStatics):
-    """Per grid: the (C, m) member sample indices of its cells in increasing
-    order (the cells of a grid are equal squares) and the (C,) mean
-    weights, as csrc/describe.cu sums them."""
-    out = []
-    for grid in ds.grids:
-        mm = grid["mean_mat"]
-        idx = np.stack([np.nonzero(mm[:, c])[0] for c in range(mm.shape[1])])
-        out.append((idx, mm[idx[:, 0], np.arange(mm.shape[1])].astype(np.float32)))
-    return out
-
-
-def _cell_means_in_member_order(chans: torch.Tensor, idx, cw) -> torch.Tensor:
+def _cell_means_in_member_order(chans: torch.Tensor, idx: torch.Tensor, cw: torch.Tensor) -> torch.Tensor:
     """(3, N, S) samples -> (3, N, C) cell means as kernels 3 and 6 sum
-    them: each cell's members (increasing sample order) cut into parts of
-    CELL_PART, each part summed acc = acc + sample * weight from 0, then the
-    part sums added in part order."""
-    idx, cw = torch.as_tensor(idx, device=chans.device), torch.as_tensor(cw, device=chans.device)
+    them from a grid's (C, m) member indices and (C,) weights: each cell's
+    members (increasing sample order) cut into parts of CELL_PART, each part
+    summed acc = acc + sample * weight from 0, then the part sums added in
+    part order."""
     mean = None
     for q0 in range(0, idx.shape[1], CELL_PART):
         acc = torch.zeros(chans.shape[:2] + (idx.shape[0],), dtype=chans.dtype, device=chans.device)
@@ -184,16 +157,14 @@ def describe_from_samples(sample, ds: DescribeStatics, dev: torch.device, xla: b
     the mean matrix.  A bit is set where mean_a > mean_b.
     Returns (angles (N,), words (N, W) int32)."""
     atan2 = torch.atan2 if xla else atan2_cephes
-    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    d = ds.on(dev)
 
     # Orientation.
-    sx_, sy_ = sample((1, 2), t(ds.ori_di), t(ds.ori_dj))
-    w = t(ds.ori_w)
-    rx = w * sx_
-    ry = w * sy_
+    sx_, sy_ = sample((1, 2), d.ori_di, d.ori_dj)
+    rx = d.ori_w * sx_
+    ry = d.ori_w * sy_
     ang = mod_2pi(atan2(ry, rx))[:, None, :]  # (N, 1, S)
-    lo, hi = t(ds.win_lo)[:, None], t(ds.win_hi)[:, None]
-    wrap = torch.as_tensor(ds.win_wrap, device=dev)[:, None]
+    lo, hi, wrap = d.win_lo[:, None], d.win_hi[:, None], d.win_wrap[:, None]
     inside = torch.where(wrap, (ang > lo) | (ang < hi - TWO_PI), (ang > lo) & (ang < hi))
     zero = torch.zeros((), device=dev)
     if xla:
@@ -208,26 +179,23 @@ def describe_from_samples(sample, ds: DescribeStatics, dev: torch.device, xla: b
     # M-LDB.
     co = torch.cos(angle)[:, None]
     si = torch.sin(angle)[:, None]
-    offk, offl = t(ds.all_offk), t(ds.all_offl)
-    syo = offl * co + offk * si
-    sxo = -offl * si + offk * co
+    syo = d.all_offl * co + d.all_offk * si
+    sxo = -d.all_offl * si + d.all_offk * co
     ri, gx, gy = sample((0, 1, 2), sxo, syo)
     dx = gx * co + gy * si
     dy = -gx * si + gy * co
     chans = torch.stack([ri, dx, dy])
     bits = []
-    for grid, members in zip(ds.grids, _cell_members(ds)):
+    for grid in d.grids:
         if xla:
-            means = torch.stack([ch @ t(grid["mean_mat"]) for ch in chans])
+            means = torch.stack([ch @ grid["mean_mat"] for ch in chans])
         else:
-            means = _cell_means_in_member_order(chans, *members)
-        pa = torch.as_tensor(grid["pa"], device=dev).long()
-        pb = torch.as_tensor(grid["pb"], device=dev).long()
-        bits.extend(means[:, :, pa] > means[:, :, pb])
+            means = _cell_means_in_member_order(chans, grid["members"], grid["weights"])
+        bits.extend(means[:, :, grid["pa"]] > means[:, :, grid["pb"]])
     allbits = torch.cat(bits, dim=1)
     nwords = ds.config.descriptor_words
     allbits = torch.nn.functional.pad(allbits, (0, nwords * 32 - allbits.shape[1]))
-    weights = torch.tensor([1 << i for i in range(32)], dtype=torch.int64, device=dev)
+    weights = 1 << torch.arange(32, dtype=torch.int64, device=dev)
     words = (allbits.reshape(-1, nwords, 32).long() * weights).sum(-1)
     return angle, torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
@@ -255,19 +223,18 @@ def describe_plain(kps: Keypoints, lvl_oct, ss: ScaleSpaceStatics, ds: DescribeS
     return angle.reshape(B, M), words.reshape(B, M, -1)
 
 
-@functools.lru_cache(maxsize=8)
-def _host_tables(ds: DescribeStatics):
+def kernel_table(ds: DescribeStatics):
     """The int32 table of csrc/describe.cu (floats by their bits; see its
     layout note) and its sizes (n_ori, n_win, n_samp, n_cells, n_tasks,
-    n_bits, n_words, n_tab)."""
+    n_bits, n_words, n_tab), as numpy; `DescribeStatics.on` copies it."""
     cells, bits = [], []
     n_cells = sum(g["mean_mat"].shape[1] for g in ds.grids)
     c0 = 0
-    for grid, (idx, cw) in zip(ds.grids, _cell_members(ds)):
-        cells.extend(zip(idx, cw))
+    for grid in ds.grids:
+        cells.extend(zip(grid["members"], grid["weights"]))
         for ch in range(3):
             bits.extend((ch * n_cells + c0 + grid["pa"]) | ((ch * n_cells + c0 + grid["pb"]) << 16))
-        c0 += len(cw)
+        c0 += len(grid["weights"])
     floats = np.concatenate([
         ds.ori_di, ds.ori_dj, ds.ori_w, ds.win_lo, ds.win_hi,
         ds.win_wrap.astype(np.float32), ds.all_offk, ds.all_offl,
@@ -286,18 +253,6 @@ def _host_tables(ds: DescribeStatics):
     return tab, sizes
 
 
-@functools.lru_cache(maxsize=8)
-def _tables(ds: DescribeStatics, device: torch.device):
-    """The kernel's table on `device` and its sizes as a C array; raises
-    where they exceed the kernel's capacities."""
-    tab, sizes = _host_tables(ds)
-    caps = (_MAX_ORI, _MAX_WIN, _MAX_SAMP, _MAX_CELLS, _MAX_TASKS, None, 32, _MAX_TAB)
-    if any(c is not None and n > c for n, c in zip(sizes, caps)):
-        raise ValueError(f"describe: tables {sizes} exceed the kernel's capacities {caps}")
-    return torch.as_tensor(tab, device=device), (ctypes.c_int * len(sizes))(*sizes)
-
-
-@functools.lru_cache(maxsize=16)
 def _level_c_args(ss: ScaleSpaceStatics, single: bool):
     lv_f, lv_i = _level_args(ss, single)
     if ss.num_levels > _MAXL:
@@ -344,7 +299,10 @@ def launch(what: str, kps: Keypoints, stacks, ss: ScaleSpaceStatics, ds: Describ
             planes.append(a.data_ptr())
         gh.append(group[0].shape[-2])
         gw.append(group[0].shape[-1])
-    tab, sizes = _tables(ds, dev)
+    d = ds.on(dev)
+    caps = (_MAX_ORI, _MAX_WIN, _MAX_SAMP, _MAX_CELLS, _MAX_TASKS, None, 32, _MAX_TAB)
+    if any(c is not None and n > c for n, c in zip(d.table_sizes, caps)):
+        raise ValueError(f"describe: tables {d.table_sizes} exceed the kernel's capacities {caps}")
     lv_f, lv_i = _level_c_args(ss, single)
     nwords = ds.config.descriptor_words
     angles = torch.empty((B * M,), dtype=torch.float32, device=dev)
@@ -353,7 +311,8 @@ def launch(what: str, kps: Keypoints, stacks, ss: ScaleSpaceStatics, ds: Describ
     G = len(stacks)
     with torch.cuda.device(dev):
         err = _entry()((P * len(planes))(*planes), (I * G)(*gh), (I * G)(*gw), G, B, M, lv_f, lv_i,
-                       ss.num_levels, *(f.data_ptr() for f in fields), tab.data_ptr(), sizes,
+                       ss.num_levels, *(f.data_ptr() for f in fields), d.table.data_ptr(),
+                       (I * len(d.table_sizes))(*d.table_sizes),
                        angles.data_ptr(), descs.data_ptr(), _build.stream_of(kps.x))
     _build.check("describe", err, what)
     _build.launches[what] += 1

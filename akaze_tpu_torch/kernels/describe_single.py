@@ -24,30 +24,19 @@ import torch
 from akaze_tpu_torch.core.types import Keypoints
 from akaze_tpu_torch.frontend.scale_space import ScaleSpaceStatics, round_half_up
 from akaze_tpu_torch.kernels import _build
-from akaze_tpu_torch.kernels.describe import _CHANNELS, _level_tensors, describe_from_samples, launch, zero_invalid
+from akaze_tpu_torch.kernels.describe import _CHANNELS, describe_from_samples, keypoint_geometry, launch, zero_invalid
 
 if TYPE_CHECKING:  # frontend/describe.py imports this module
     from akaze_tpu_torch.frontend.describe import DescribeStatics
 
 
-def _geometry(kps: Keypoints, ss: ScaleSpaceStatics):
-    """kpf (M, 5) f32 = (xf, yf, scale, xmax, ymax), kpi (M, 2) i32 = (level,
-    valid) of one frame's (M,) keypoints."""
-    lv_f, _ = _level_tensors(ss, kps.x.device)
-    lvl = kps.class_id.long()
-    f = lv_f[lvl]
-    kpf = torch.stack([kps.x / f[:, 0], kps.y / f[:, 0], f[:, 1], f[:, 2], f[:, 3]], dim=1)
-    kpi = torch.stack([lvl, kps.valid.long()], dim=1).to(torch.int32)
-    return kpf, kpi
-
-
 def describe_pallas_plain(kps: Keypoints, stacks: dict, ss: ScaleSpaceStatics, ds: DescribeStatics):
     """(angles (M,) f32, descriptors (M, W) int32) in plain PyTorch."""
-    kpf, kpi = _geometry(kps, ss)
+    kpf, _ = keypoint_geometry(kps, ss)
     planes = [stacks[k] for k in _CHANNELS]
     L, H0, W0 = planes[0].shape
     xf, yf, sc = kpf[:, 0:1], kpf[:, 1:2], kpf[:, 2:3]
-    base = kpi[:, 0:1].long() * (H0 * W0)
+    base = kps.class_id[:, None].long() * (H0 * W0)
 
     def sample(channels, offx, offy):
         ix = torch.minimum(torch.clamp(round_half_up(xf + offx * sc), min=0), kpf[:, 3:4].to(torch.int32))

@@ -76,21 +76,6 @@ def unpack_sub(packed: torch.Tensor):
     return qx.to(torch.float32) * inv - 1.0, qy.to(torch.float32) * inv - 1.0, keep
 
 
-def octave_groups(statics) -> tuple:
-    """Per-octave (first level, level count, h, w) of the level list."""
-    groups = []
-    lvl = 0
-    L = statics.num_levels
-    while lvl < L:
-        h, w = int(statics.heights[lvl]), int(statics.widths[lvl])
-        n = 1
-        while lvl + n < L and int(statics.heights[lvl + n]) == h:
-            n += 1
-        groups.append((lvl, n, h, w))
-        lvl += n
-    return tuple(groups)
-
-
 # ------------------------------------------------------------------ kernel 1
 
 
@@ -519,7 +504,7 @@ def build_scale_space(imgs: torch.Tensor, statics, plain: bool = False) -> dict:
     seed, modg = base(imgs, float(config.base_scale_offset))
     with span("frontend.contrast", imgs.device):
         k = contrast_factor_from_modg(modg, config)
-    groups = octave_groups(statics)
+    groups = statics.groups
     lvl_oct, oct_fields = [], []
     for oi, (l0, n, _, _) in enumerate(groups):
         if oi > 0:

@@ -15,7 +15,6 @@ from the kernel bit for bit what the plain form's mask gives through
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -31,14 +30,14 @@ def cross_level_nms_plain(cand: dict, statics) -> torch.Tensor:
     returns the surviving mask."""
     dev = cand["resp"].device
     L = statics.num_levels
-    ratios = torch.as_tensor(statics.ratios, device=dev)[:, None]
+    ratios, r2 = statics.on(dev).nms
+    ratios = ratios[:, None]
     x0 = cand["xi"].to(torch.float32) * ratios
     y0 = cand["yi"].to(torch.float32) * ratios
     resp = cand["resp"]
     valid = cand["valid"]
     npx = statics.h0 * statics.w0
     tie = torch.arange(L, dtype=torch.int32, device=dev)[:, None] * npx + cand["flat"]
-    r2 = torch.as_tensor((statics.config.dedup_radius_factor * statics.sizes) ** 2, device=dev)
     r2_next = torch.cat([r2[1:], torch.zeros_like(r2[:1])])
 
     def shift(a, d, fill):
@@ -63,14 +62,6 @@ def cross_level_nms_plain(cand: dict, statics) -> torch.Tensor:
         )
         suppressed |= (close & beats & qvalid[..., None, :]).any(dim=-1)
     return valid & ~suppressed
-
-
-@functools.lru_cache(maxsize=8)
-def _tables(statics, device: torch.device) -> torch.Tensor:
-    """(2, L) float32 on the device, copied once: the level ratios and the
-    squared radii, the plain form's own values."""
-    r2 = torch.as_tensor((statics.config.dedup_radius_factor * statics.sizes) ** 2)
-    return torch.stack([torch.as_tensor(statics.ratios), r2]).to(device, torch.float32).contiguous()
 
 
 def _check(cand: dict, statics) -> None:
@@ -102,7 +93,7 @@ def cross_level_nms(cand: dict, statics) -> torch.Tensor:
     masked = torch.empty_like(resp)
     if masked.numel() == 0:
         return masked
-    tables = _tables(statics, resp.device)
+    tables = statics.on(resp.device).nms  # (2, L) float32: ratios, squared radii
     P_, I = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("nms", "cross_level_nms", [P_, P_, P_, P_, P_, P_, I, I, I, I, ctypes.c_float, P_, P_])
     with torch.cuda.device(resp.device):

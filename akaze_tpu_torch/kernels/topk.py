@@ -27,7 +27,7 @@ import ctypes
 import torch
 
 from akaze_tpu_torch.kernels import _build
-from akaze_tpu_torch.kernels.fed import NEG, octave_groups
+from akaze_tpu_torch.kernels.fed import NEG
 
 #: Most octaves the kernel's launch argument holds.
 MAX_OCTAVES = 8
@@ -43,23 +43,39 @@ def capacity(K: int) -> int:
     return 1 << (max(2048, min(4 * K, 16384), K) - 1).bit_length()
 
 
+def topk_stable(values: torch.Tensor, k: int):
+    """Top-k along the last axis of float32 `values`, ties to the lower
+    index, as (values, indices) sorted best first: `torch.topk` over unique
+    int64 keys (order-preserving score bits, then the reversed index)."""
+    bits = values.contiguous().view(torch.int32).to(torch.int64)
+    ordered = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)  # float order as int order
+    n = values.shape[-1]
+    index = torch.arange(n, device=values.device, dtype=torch.int64)
+    key = ordered * (1 << 32) + (n - 1 - index)
+    idx = torch.topk(key, k, dim=-1, sorted=True).indices
+    return torch.gather(values, -1, idx), idx
+
+
+def topk_padded(values: torch.Tensor, K: int):
+    """`topk_stable` of k = min(K, n) along the last axis of length n, the
+    slots past k holding NEG at index 0."""
+    k = min(K, values.shape[-1])
+    resp, idx = topk_stable(values, k)
+    if k < K:
+        resp = torch.nn.functional.pad(resp, (0, K - k), value=NEG)
+        idx = torch.nn.functional.pad(idx, (0, K - k))
+    return resp, idx
+
+
 def per_level_topk_plain(scores, statics) -> dict:
     """Per-level top-K from per-octave level-major (n, B, h, w) score
-    stacks through `torch.topk` over unique int64 keys."""
-    # Imported here: frontend.detect imports this module.
-    from akaze_tpu_torch.frontend.detect import _topk_stable
-
+    stacks through `topk_padded`."""
     K = statics.config.per_level_candidates
     w0 = statics.w0
     resp_g, yi_g, xi_g = [], [], []
-    for (_, n, h, w), score in zip(octave_groups(statics), scores):
+    for (_, n, h, w), score in zip(statics.groups, scores):
         B = score.shape[1]
-        flat = score.reshape(n * B, h * w)
-        k = min(K, h * w)
-        resp, idx = _topk_stable(flat, k)
-        if k < K:
-            resp = torch.nn.functional.pad(resp, (0, K - k), value=NEG)
-            idx = torch.nn.functional.pad(idx, (0, K - k))
+        resp, idx = topk_padded(score.reshape(n * B, h * w), K)
         resp_g.append(resp.reshape(n, B, K).transpose(0, 1))
         yi_g.append(torch.div(idx, w, rounding_mode="floor").reshape(n, B, K).transpose(0, 1))
         xi_g.append((idx % w).reshape(n, B, K).transpose(0, 1))
@@ -88,7 +104,7 @@ def per_level_topk(scores, statics) -> dict:
     """(B, L, K) candidates of per-octave (n, B, h, w) score stacks: the
     kernel on CUDA tensors, the plain form on CPU tensors."""
     global _latest_paths
-    groups = octave_groups(statics)
+    groups = statics.groups
     _check(scores, groups)
     if statics.h0 * statics.w0 >= 2**31:
         raise ValueError(f"per_level_topk: the octave-0 index overflows int32: {statics.h0} x {statics.w0} px")

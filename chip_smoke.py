@@ -1635,7 +1635,6 @@ def phase_oracles(torch, np, dev, root: Path, card: str, reset_counts, main_fps:
     from akaze_tpu_torch.kernels import _build
     from akaze_tpu_torch.kernels.fed import (
         base_stage_plain, fused_level_batched, fused_level_batched_plain, fused_octave, fused_octave_plain,
-        octave_groups,
     )
     from akaze_tpu_torch.matching.hamming import match_features
     from akaze_tpu_torch.utils.synthetic import SCENE_CLASSES, textured_scene, video_sequence
@@ -1701,7 +1700,7 @@ def phase_oracles(torch, np, dev, root: Path, card: str, reset_counts, main_fps:
 
         # Kernel 2 against its twin on one batch, each octave fed the plain chain's seed.
         ss, _ = _statics(W, H, cfg)
-        groups = octave_groups(ss)
+        groups = ss.groups
         seed, modg = base_stage_plain(sets[0], float(cfg.base_scale_offset))
         k = contrast_factor_from_modg(modg, cfg)
         for oi, (l0, n, h, w) in enumerate(groups):
@@ -1927,7 +1926,7 @@ def phase_degenerate(torch, np, dev, root: Path, reset_counts, out: dict) -> Non
     from akaze_tpu_torch.geometry.twoview import estimate_relative_pose
     from akaze_tpu_torch.interop import jax_uniform
     from akaze_tpu_torch.kernels import _build
-    from akaze_tpu_torch.kernels.fed import base_stage_plain, fused_octave, fused_octave_plain, octave_groups
+    from akaze_tpu_torch.kernels.fed import base_stage_plain, fused_octave, fused_octave_plain
     from akaze_tpu_torch.matching.hamming import match, match_fn
     from akaze_tpu_torch.utils.synthetic import video_sequence
 
@@ -2013,7 +2012,7 @@ def phase_degenerate(torch, np, dev, root: Path, reset_counts, out: dict) -> Non
     k = contrast_factor_from_modg(base_stage_plain(imgs, cfg.base_scale_offset)[1], cfg)
     imgs[1, 100:104, 150:154] = float("nan")
     seed, _ = base_stage_plain(imgs, cfg.base_scale_offset)
-    groups, n_nan, n_cand = octave_groups(ss), 0, 0
+    groups, n_nan, n_cand = ss.groups, 0, 0
     for oi, (l0, n, _, _) in enumerate(groups):
         if oi:
             k = k * cfg.contrast_octave_decay
@@ -2132,7 +2131,7 @@ def main() -> int:
         from akaze_tpu_torch.kernels.describe_single import describe_pallas, describe_pallas_plain
         from akaze_tpu_torch.kernels.fed import (
             base_stage, base_stage_plain, build_scale_space_levels, fused_level_batched,
-            fused_level_batched_plain, fused_octave, fused_octave_plain, octave_groups, specs_plan,
+            fused_level_batched_plain, fused_octave, fused_octave_plain, specs_plan,
             unpack_sub,
         )
         from akaze_tpu_torch.kernels.match import match_reduce, match_reduce_plain, pair_table
@@ -2162,7 +2161,7 @@ def main() -> int:
     config, mcfg = AkazeConfig(), MatchConfig()
     cfg_a = AkazeConfig(describe_backend="xla")  # path A
     ss, ds = _statics(W, H, config)
-    groups = octave_groups(ss)
+    groups = ss.groups
     px = B * H * W
     results = {}
 

@@ -24,7 +24,6 @@ from akaze_tpu_torch.core.config import AkazeConfig
 from akaze_tpu_torch.core.types import Keypoints
 from akaze_tpu_torch.frontend.pipeline import _statics
 from akaze_tpu_torch.kernels.describe import describe
-from akaze_tpu_torch.kernels.fed import octave_groups
 from torch_port_helpers import hamming, wrapped_angle_diff
 
 torch.set_num_threads(2)
@@ -50,7 +49,7 @@ def _port_inputs(stacks, kps, valid=None):
     """Per-octave level-major (n, B, h, w) stacks and (B, M) keypoints."""
     tss, tds = _statics(W, H, AkazeConfig())
     lvl_oct = []
-    for l0, n, h, w in octave_groups(tss):
+    for l0, n, h, w in tss.groups:
         lvl_oct.append({
             key: torch.from_numpy(np.stack([np.asarray(s[key])[l0 : l0 + n, :h, :w] for s in stacks], axis=1))
             for key in ("Lt", "Lx", "Ly")

@@ -2,7 +2,7 @@
 CPU.
 
 The CUDA kernel cannot run here, so `_replay` does what its blocks do, in
-plain PyTorch, from the very table (`_host_tables`) and per-level arguments
+plain PyTorch, from the very table (`kernel_table`) and per-level arguments
 (`_level_args`) the wrapper hands the kernel: the persistent grid's strided
 walk over the slots (dead slots zeroed, live ones compacted in thread
 order), then per live slot, thread task by thread task: one orientation
@@ -34,8 +34,8 @@ from akaze_tpu_torch.core.config import AkazeConfig
 from akaze_tpu_torch.frontend.detect import detect, detect_dense, find_candidates_oct
 from akaze_tpu_torch.frontend.pipeline import _statics
 from akaze_tpu_torch.kernels.describe import (
-    CELL_PART, THREADS, TWO_PI, WIN_SPLIT, _cell_means_in_member_order, _cell_members, _host_tables,
-    _level_args, _window_sums, atan2_cephes, describe_plain, mod_2pi,
+    CELL_PART, THREADS, TWO_PI, WIN_SPLIT, _cell_means_in_member_order, _level_args, kernel_table,
+    _window_sums, atan2_cephes, describe_plain, mod_2pi,
 )
 from akaze_tpu_torch.kernels.describe_single import describe_pallas_plain
 from akaze_tpu_torch.kernels.fed import build_scale_space, build_scale_space_levels
@@ -56,7 +56,7 @@ PLANTED = [(100.0, 200.0, 11), (300.0, 220.0, 10), (20.0, 20.0, 9), (160.0, 120.
 def _tables(ds):
     """The kernel's table cut into its named arrays (csrc/describe.cu's
     layout note)."""
-    tab, (n_ori, n_win, n_samp, n_cells, n_tasks, n_bits, n_words, _) = _host_tables(ds)
+    tab, (n_ori, n_win, n_samp, n_cells, n_tasks, n_bits, n_words, _) = kernel_table(ds)
     f = torch.from_numpy(tab.view(np.float32).copy())
     i = torch.from_numpy(tab.astype(np.int64))
     names = [("ori_di", n_ori), ("ori_dj", n_ori), ("ori_w", n_ori), ("win_lo", n_win), ("win_hi", n_win),
@@ -237,7 +237,8 @@ def _check_sums(inter, ds):
         for j in range(1, WIN_SPLIT):
             want = want + part[c, :, j]
         torch.testing.assert_close(_window_sums(inside, r), want, rtol=0, atol=0, equal_nan=True)
-    twin = torch.cat([_cell_means_in_member_order(inter["smp"], *m) for m in _cell_members(ds)], dim=2)
+    twin = torch.cat([_cell_means_in_member_order(inter["smp"], g["members"], g["weights"])
+                      for g in ds.on("cpu").grids], dim=2)
     torch.testing.assert_close(twin.permute(1, 0, 2).reshape(twin.shape[1], -1), inter["mean"], rtol=0, atol=0,
                                equal_nan=True)
 

@@ -29,7 +29,7 @@ from akaze_tpu_torch.frontend.scale_space import (
 from akaze_tpu_torch.kernels import fed
 from akaze_tpu_torch.kernels.fed import (
     BASE_HALO, BASE_TILE, NEG, SMEM_MAX, base_stage_plain, fused_level_batched, fused_level_batched_plain,
-    fused_octave, fused_octave_plain, level_plan, octave_groups, plan_launches, score_fields_plain,
+    fused_octave, fused_octave_plain, level_plan, plan_launches, score_fields_plain,
 )
 from akaze_tpu_torch.utils.synthetic import video_sequence
 from torch_port_helpers import custom_plan
@@ -40,7 +40,7 @@ H100_SMS = 132
 
 def _octaves(w, h, cfg=None):
     ss, _ = _statics(w, h, cfg or AkazeConfig())
-    groups = octave_groups(ss)
+    groups = ss.groups
     return ss, [(oi, ss.specs[l0 : l0 + n], ph, pw) for oi, (l0, n, ph, pw) in enumerate(groups)]
 
 

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from akaze_tpu_torch.core.config import AkazeConfig, Diffusivity, MatchConfig, RansacConfig, SfmConfig
+from akaze_tpu_torch.frontend.describe import describe_batched
 from akaze_tpu_torch.frontend.detect import detect, detect_dense, find_candidates_oct
 from akaze_tpu_torch.frontend.pipeline import _statics, extract_batch, extract_batch_fn, extract_fn
 from akaze_tpu_torch.frontend.scale_space import contrast_factor_from_modg, half_size
@@ -30,9 +31,9 @@ from akaze_tpu_torch.kernels import _build, fed
 from akaze_tpu_torch.kernels.describe import describe, describe_plain
 from akaze_tpu_torch.kernels.describe_single import describe_pallas, describe_pallas_plain
 from akaze_tpu_torch.kernels.fed import (
-    base_stage, base_stage_plain, build_scale_space_levels, fused_level_batched,
+    base_stage, base_stage_plain, build_scale_space, build_scale_space_levels, fused_level_batched,
     SMALL_TILE, fused_level_batched_plain, fused_octave, fused_octave_plain, level_plan,
-    octave_groups, plan_launches, unpack_sub,
+    plan_launches, unpack_sub,
 )
 from akaze_tpu_torch.kernels.patch import gather_patches, gather_patches_plain
 from akaze_tpu_torch.kernels.match import match_reduce, match_reduce_plain
@@ -74,7 +75,7 @@ def _plain_octaves(imgs, ss):
     seed, modg = base_stage_plain(imgs, cfg.base_scale_offset)
     k = contrast_factor_from_modg(modg, cfg)
     args = []
-    groups = octave_groups(ss)
+    groups = ss.groups
     outs = []
     for oi, (l0, n, _, _) in enumerate(groups):
         if oi:
@@ -436,6 +437,28 @@ def test_keyframe_loop_issues_no_host_sync(cuda):
     assert bool(flags[4])  # the scene cut
 
 
+def test_batch_path_after_the_scale_space_issues_no_host_sync(cuda):
+    """Candidates, detect and the fused describe of a VGA batch make no host
+    sync once the statics' device tables exist (the contrast factor's
+    masked select in the scale space syncs by design)."""
+    frames = _frames(cuda, n=4, seed=8, size=(480, 640))
+    ss, ds = _statics(640, 480, AkazeConfig())
+    st = build_scale_space(frames, ss)
+
+    def after_scale_space():
+        kps = detect(find_candidates_oct(st["oct"], ss), st["oct"], ss)
+        return describe_batched(kps, st["lvl_oct"], ss, ds)
+
+    want = after_scale_space()  # warms the path up: libraries, device tables
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = after_scale_space()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got.descriptors, want.descriptors) and int(got.keypoints.valid.sum()) > 100
+
+
 def _plane_correspondences(cuda, seed):
     img_a, img_b, R_gt, t_gt, intr = multi_plane_pair(seed=seed)
     feats = extract_batch(np.stack([img_a, img_b]), device=cuda)
@@ -741,7 +764,7 @@ def test_fused_octave_nan_seed_equals_plain(cuda):
     k = contrast_factor_from_modg(base_stage_plain(imgs, cfg.base_scale_offset)[1], cfg)
     imgs[1, 100:104, 150:154] = float("nan")
     seed, _ = base_stage_plain(imgs, cfg.base_scale_offset)
-    groups = octave_groups(ss)
+    groups = ss.groups
     n_nan = 0
     for oi, (l0, n, _, _) in enumerate(groups):
         if oi:

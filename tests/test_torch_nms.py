@@ -12,6 +12,8 @@ both detection paths, and the wrapper refuses malformed input.  The file imports
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_nms.py
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -36,6 +38,11 @@ class _Statics:
         self.sizes = np.asarray(sizes, np.float32)
         self.h0, self.w0 = h0, w0
         self.config = AkazeConfig(dedup_radius_factor=factor)
+
+    def on(self, device):
+        """The NMS's (2, L) table as `ScaleSpaceStatics.on` lays it out."""
+        r2 = (self.config.dedup_radius_factor * self.sizes) ** 2
+        return SimpleNamespace(nms=torch.as_tensor(np.stack([self.ratios, r2]).astype(np.float32), device=device))
 
 
 def _synthetic(case: str):

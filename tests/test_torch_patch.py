@@ -15,7 +15,6 @@ from akaze_tpu_torch.core.config import AkazeConfig
 from akaze_tpu_torch.frontend.describe import restack_levels
 from akaze_tpu_torch.frontend.pipeline import _statics
 from akaze_tpu_torch.kernels import _build
-from akaze_tpu_torch.kernels.fed import octave_groups
 from akaze_tpu_torch.kernels.patch import gather_patches
 
 CASES = {
@@ -95,10 +94,10 @@ def test_restack_pads_and_deep_windows_read_the_padding():
     lvl_oct = tuple(
         {k: torch.from_numpy(rng.standard_normal((n, B, h, w)).astype(np.float32) + 5.0)
          for k in ("Lt", "Lx", "Ly")}
-        for _, n, h, w in octave_groups(ss))
+        for _, n, h, w in ss.groups)
     st = restack_levels(lvl_oct, ss)
     assert st["level_major"] and st["Lt"].shape == (ss.num_levels, B, 240, 320)
-    for (l0, n, h, w), o in zip(octave_groups(ss), lvl_oct):
+    for (l0, n, h, w), o in zip(ss.groups, lvl_oct):
         for k in ("Lt", "Lx", "Ly"):
             assert torch.equal(st[k][l0 : l0 + n, :, :h, :w], o[k])
             assert (st[k][l0 : l0 + n, :, h:] == 0).all() and (st[k][l0 : l0 + n, :, :, w:] == 0).all()

@@ -26,6 +26,7 @@ from akaze_tpu_torch import interop
 from akaze_tpu_torch.core import fed, image
 from akaze_tpu_torch.core.config import AkazeConfig, Diffusivity, MatchConfig
 from akaze_tpu_torch.frontend.pipeline import _statics, extract, extract_batch
+from akaze_tpu_torch.kernels.describe import kernel_table
 from akaze_tpu_torch.matching.hamming import match, match_features
 from akaze_tpu_torch.utils import synthetic
 from torch_port_helpers import pair_keypoints
@@ -113,6 +114,77 @@ def test_copied_tables_equal_jax():
             np.testing.assert_array_equal(g[key], jg[key])
     np.testing.assert_array_equal(synthetic.video_sequence(2, 120, 160, seed=5),
                                   jax_synthetic.video_sequence(2, 120, 160, seed=5))
+
+
+# Per case: (width, height, config fields) and the octave grouping the
+# level list had before the statics owned it (`kernels/fed.octave_groups`).
+STATICS_CASES = [
+    (640, 480, {}, ((0, 4, 480, 640), (4, 4, 240, 320), (8, 4, 120, 160), (12, 4, 60, 80))),
+    (1241, 376, {}, ((0, 4, 376, 1241), (4, 4, 188, 620), (8, 4, 94, 310), (12, 4, 47, 155))),
+    (3072, 2048, {"max_keypoints": 8192, "per_level_candidates": 2048},
+     ((0, 4, 2048, 3072), (4, 4, 1024, 1536), (8, 4, 512, 768), (12, 4, 256, 384))),
+    (97, 131, {}, ((0, 4, 131, 97), (4, 4, 65, 48))),
+]
+
+
+@pytest.mark.parametrize("w, h, fields, groups", STATICS_CASES, ids=["vga", "kitti", "strecha", "odd"])
+def test_statics_device_tables(w, h, fields, groups):
+    """`ss.groups` is the old grouping; `on(device)` is built once per
+    device, and every table is its numpy source, dtype and bits."""
+    ss, ds = _statics(w, h, AkazeConfig(**fields))
+    assert ss.groups == groups
+    t, d = ss.on("cpu"), ds.on("cpu")
+    assert ss.on(torch.device("cpu")) is t and ds.on(torch.device("cpu")) is d
+
+    def same(got, want):
+        want = torch.from_numpy(np.ascontiguousarray(want))
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+    for name in ("ratios", "sizes", "octaves", "widths", "heights", "scale", "interior"):
+        same(getattr(t, name), getattr(ss, name))
+    same(t.nms, np.stack([ss.ratios, (ss.config.dedup_radius_factor * ss.sizes) ** 2]).astype(np.float32))
+    same(t.level_f, ss.level_f.T)
+    same(t.level_i, ss.level_i.T.astype(np.int64))
+    assert t.scale.dtype == torch.int32 and t.level_f.dtype == torch.float32
+    for name in ("ori_di", "ori_dj", "ori_w", "win_lo", "win_hi", "win_wrap", "all_offk", "all_offl"):
+        same(getattr(d, name), getattr(ds, name))
+    assert len(d.grids) == len(ds.grids) == 3
+    for g, host in zip(d.grids, ds.grids):
+        assert g.keys() == host.keys() == {"mean_mat", "pa", "pb", "members", "weights"}
+        same(g["mean_mat"], host["mean_mat"])
+        same(g["pa"], host["pa"].astype(np.int64))
+        same(g["pb"], host["pb"].astype(np.int64))
+        same(g["members"], host["members"])
+        same(g["weights"], host["weights"])
+        assert host["weights"].dtype == np.float32 and host["members"].dtype == np.int64
+    tab, sizes = kernel_table(ds)
+    same(d.table, tab)
+    assert d.table.dtype == torch.int32 and d.table_sizes == sizes
+
+
+def _runtime_imports(path: Path):
+    """Modules imported by `path`, leaving out `if TYPE_CHECKING:` blocks."""
+    def walk(node):
+        if isinstance(node, ast.If) and getattr(node.test, "id", None) == "TYPE_CHECKING":
+            return
+        if isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+        for child in ast.iter_child_nodes(node):
+            yield from walk(child)
+    yield from walk(ast.parse(path.read_text(), filename=str(path)))
+
+
+def test_lower_layers_import_no_front_end_stage():
+    """Nothing in kernels/ imports the detect or describe stage at run time,
+    and geometry/ imports no private front-end name."""
+    for path in sorted((ROOT / "akaze_tpu_torch" / "kernels").glob("*.py")):
+        for name in _runtime_imports(path):
+            assert name not in ("akaze_tpu_torch.frontend.detect", "akaze_tpu_torch.frontend.describe"), \
+                f"{path.name} imports {name}"
+    for path in sorted((ROOT / "akaze_tpu_torch" / "geometry").glob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom) and (node.module or "").startswith("akaze_tpu_torch.frontend"):
+                assert not any(a.name.startswith("_") for a in node.names), f"{path.name} imports {node.module}"
 
 
 def test_tf32_is_off():

@@ -27,7 +27,7 @@ from akaze_tpu_torch.core.config import AkazeConfig
 from akaze_tpu_torch.frontend.detect import find_candidates_oct
 from akaze_tpu_torch.frontend.pipeline import _statics
 from akaze_tpu_torch.kernels import _build, topk
-from akaze_tpu_torch.kernels.fed import NEG, build_scale_space, octave_groups
+from akaze_tpu_torch.kernels.fed import NEG, build_scale_space
 from torch_port_helpers import cuda  # noqa: F401 (a fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -62,7 +62,7 @@ def _score_stacks(kind: str, ss, B: int, seed: int) -> list:
     rng = np.random.default_rng(seed)
     K = ss.config.per_level_candidates
     out = []
-    for _, n, h, w in octave_groups(ss):
+    for _, n, h, w in ss.groups:
         hw = h * w
         k = min(K, hw)
         planes = np.full((n * B, hw), NEG32, np.float32)
@@ -97,7 +97,7 @@ def _reference(stacks, ss) -> dict:
     resp = np.full((B, L, K), NEG32, np.float32)
     idx = np.zeros((B, L, K), np.int64)
     ws = np.zeros(L, np.int64)
-    for (l0, n, h, w), s in zip(octave_groups(ss), stacks):
+    for (l0, n, h, w), s in zip(ss.groups, stacks):
         ws[l0 : l0 + n] = w
         k = min(K, h * w)
         planes = s.numpy().reshape(n, B, h * w)
@@ -156,9 +156,9 @@ def test_plain_form_equals_numpy_sort(shape, kind):
     B = 1 if shape != "short_octaves" else B
     stacks = _score_stacks(kind, ss, B, seed=len(shape) * 7 + KINDS.index(kind))
     if shape == "short_octaves":
-        assert any(h * w < ss.config.per_level_candidates for _, _, h, w in octave_groups(ss))
+        assert any(h * w < ss.config.per_level_candidates for _, _, h, w in ss.groups)
     if shape == "kitti":
-        assert any(h * w % 4 for _, _, h, w in octave_groups(ss))
+        assert any(h * w % 4 for _, _, h, w in ss.groups)
     got = topk.per_level_topk(stacks, ss)
     _assert_equal(got, {k: torch.from_numpy(v) for k, v in _reference(stacks, ss).items()})
     _assert_equal(find_candidates_oct([{"score": s} for s in stacks], ss), got)

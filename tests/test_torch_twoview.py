@@ -26,7 +26,7 @@ from akaze_tpu.geometry import twoview as J
 from akaze_tpu.utils import synthetic as jax_synthetic
 from akaze_tpu_torch import interop
 from akaze_tpu_torch.core import config
-from akaze_tpu_torch.frontend.detect import _topk_stable
+from akaze_tpu_torch.kernels.topk import topk_stable
 from akaze_tpu_torch.frontend.pipeline import extract_batch
 from akaze_tpu_torch.geometry import twoview as T
 from akaze_tpu_torch.matching.hamming import match_features
@@ -189,7 +189,7 @@ def test_many_equal_beam_counts_match_jax():
     _, g = _jax_draws(7, tcfg, len(mask))
     _, _, scores = T._hypotheses(*(torch.from_numpy(np.array(v))[None] for v in (x1, x2, mask, g)), tcfg)
     assert int((scores == scores.max()).sum()) >= 4 * tcfg.refit_beam
-    _, top = _topk_stable(scores.to(torch.float32), tcfg.refit_beam)
+    _, top = topk_stable(scores.to(torch.float32), tcfg.refit_beam)
     np.testing.assert_array_equal(top[0].numpy(), np.asarray(jax.lax.top_k(jnp.asarray(scores[0].numpy()),
                                                                             tcfg.refit_beam)[1]))
     ref, got = _both(x1, x2, mask, 7, **cfg)
@@ -207,13 +207,13 @@ def test_fewer_than_eight_valid_slots():
     tcfg = config.RansacConfig()
     _, g = _jax_draws(9, tcfg, len(mask))
     gm = np.where(mask[None], g, -1.0).astype(np.float32)
-    _, idx = _topk_stable(torch.from_numpy(gm), tcfg.sample_size)
+    _, idx = topk_stable(torch.from_numpy(gm), tcfg.sample_size)
     np.testing.assert_array_equal(idx.numpy(), np.asarray(jax.lax.top_k(jnp.asarray(gm), tcfg.sample_size)[1]))
     assert set(idx[:, 6:].reshape(-1).tolist()) == {0, 1}
 
     t = [torch.from_numpy(np.array(v))[None] for v in (x1, x2, mask, g)]
     E_h, inl_h, cnt_h = T._hypotheses(*t, tcfg)
-    _, top = _topk_stable(cnt_h.to(torch.float32), tcfg.refit_beam)
+    _, top = topk_stable(cnt_h.to(torch.float32), tcfg.refit_beam)
     E0, inl0, cnt0 = (T._take(v, top) for v in (E_h, inl_h, cnt_h))
     E, inl, cnt = T._refit(E0, inl0, cnt0, t[0], t[1], t[2], tcfg)
     assert (cnt >= cnt0).all()  # the guard: no round loses inliers

@@ -23,7 +23,7 @@ from akaze_tpu.core import config as jax_config
 from akaze_tpu.geometry import twoview as J
 from akaze_tpu_torch import interop
 from akaze_tpu_torch.core import config
-from akaze_tpu_torch.frontend.detect import _topk_stable
+from akaze_tpu_torch.kernels.topk import topk_stable
 from akaze_tpu_torch.geometry import twoview as T
 from torch_port_helpers import assert_same_pose
 
@@ -127,7 +127,7 @@ def test_refit_keeps_the_beam_of_a_poisoned_problem(keep):
     mask[0, 5] = keep
     g = torch.from_numpy(np.broadcast_to(interop.jax_uniform(0, (ITERS, x1.shape[1])), (2, ITERS, x1.shape[1])).copy())
     E_h, inl_h, cnt_h = T._hypotheses(x1, x2, mask, g, cfg)
-    _, top = _topk_stable(cnt_h.to(torch.float32), cfg.refit_beam)
+    _, top = topk_stable(cnt_h.to(torch.float32), cfg.refit_beam)
     E0, inl0, cnt0 = (T._take(v, top) for v in (E_h, inl_h, cnt_h))
     E, inl, cnt = T._refit(E0, inl0, cnt0, x1, x2, mask, cfg)
     assert torch.equal(E[0], E0[0]) and torch.equal(inl[0], inl0[0]) and torch.equal(cnt[0], cnt0[0])

@@ -120,6 +120,7 @@ def main() -> int:
         raise SystemExit("needs an NVIDIA GPU")
     import chip_smoke
     from akaze_tpu_torch.core.config import AkazeConfig
+    from akaze_tpu_torch.frontend.describe import DescribeStatics
     from akaze_tpu_torch.frontend.detect import detect, detect_dense, find_candidates_oct
     from akaze_tpu_torch.frontend.pipeline import _statics
     from akaze_tpu_torch.kernels import _build
@@ -159,10 +160,10 @@ def main() -> int:
     defaults = {k: getattr(kd, k) for k in ("WIN_SPLIT", "CELL_PART", "_MAX_TASKS")}
 
     def constants(name):
+        nonlocal ds
         for k, v in {**defaults, **VARIANTS[name][2]}.items():
             setattr(kd, k, v)
-        kd._host_tables.cache_clear()
-        kd._tables.cache_clear()
+        ds = DescribeStatics(ss.config, ss)  # its device tables hold the kernel table these constants shape
 
     def outputs():
         return [*kd.describe(kps, lvl_oct, ss, ds), *(x for k, s in single for x in describe_pallas(k, s, ss, ds))]
