@@ -33,7 +33,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "akaze_tpu_torch"
-SOURCES = ("fed", "describe", "match", "patch", "nms", "topk")
+SOURCES = ("fed", "describe", "match", "patch", "nms", "topk", "contrast")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas=-v",
@@ -42,6 +42,7 @@ NVCC_FLAGS = (
 launches = {
     "base_stage": 0, "fused_octave": 0, "describe": 0, "match": 0,
     "fused_level": 0, "gather_patches": 0, "describe_pallas": 0, "nms": 0, "topk": 0,
+    "contrast": 0,
 }
 
 counts = {"match_pairs": 0, "match_slot_pairs": 0}

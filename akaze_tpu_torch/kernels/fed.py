@@ -35,7 +35,7 @@ from akaze_tpu_torch.frontend.scale_space import (
     scharr,
     shift,
 )
-from akaze_tpu_torch.kernels import _build
+from akaze_tpu_torch.kernels import _build, contrast
 from akaze_tpu_torch.utils.profiling import span
 
 #: Sub-pixel offsets quantise to 1/16000 px in two 16-bit halves of one
@@ -475,7 +475,7 @@ def build_scale_space_levels(imgs: torch.Tensor, statics, plain: bool = False) -
     level = fused_level_batched_plain if plain else fused_level_batched
     seed, modg = base(imgs, float(config.base_scale_offset))
     with span("frontend.contrast", imgs.device):
-        k = contrast_factor_from_modg(modg, config)
+        k = contrast_factor_from_modg(modg, config) if plain else contrast.contrast_factor(modg, config)
     B, L = imgs.shape[0], len(specs)
     stacks = {key: imgs.new_zeros((B, L, statics.h0, statics.w0)) for key in ("Lt", "Lx", "Ly", "Ldet")}
     for i, spec in enumerate(specs):
@@ -503,7 +503,7 @@ def build_scale_space(imgs: torch.Tensor, statics, plain: bool = False) -> dict:
     octave = fused_octave_plain if plain else fused_octave
     seed, modg = base(imgs, float(config.base_scale_offset))
     with span("frontend.contrast", imgs.device):
-        k = contrast_factor_from_modg(modg, config)
+        k = contrast_factor_from_modg(modg, config) if plain else contrast.contrast_factor(modg, config)
     groups = statics.groups
     lvl_oct, oct_fields = [], []
     for oi, (l0, n, _, _) in enumerate(groups):

@@ -4,16 +4,19 @@
     python3 chip_smoke.py [--batch 128] [--reps 3]
 
 1. Prints the card (nvidia-smi name and power limit), the torch / CUDA /
-   nvcc versions, and builds the seven kernels, the NMS and the top-K kernel from
-   akaze_tpu_torch/csrc (all nvcc processes in parallel), timing the build
-   and printing each __global__ function's registers and spills as ptxas
-   reports them.
+   nvcc versions, and builds the seven kernels, the NMS, the top-K and the
+   contrast-factor kernel from akaze_tpu_torch/csrc (all nvcc processes
+   in parallel), timing the build and printing each __global__ function's
+   registers and spills as ptxas reports them.
 2. Holds each kernel against its plain PyTorch twin on the card, on the
-   inputs its path gives it (kernels 1-4, 7, the NMS and the top-K: batch
-   VGA frames, the top-K also on 128 KITTI frames; kernels 5 and 6: single
-   VGA frames of the per-level path), with the stated tolerances (kernels
-   1, 3, 4, 6, 7, the NMS and the top-K bit for bit), and times both; the
-   top-K prints its planes by path.
+   inputs its path gives it (kernels 1-4, 7, the NMS, the top-K and the
+   contrast factor: batch VGA frames, the top-K and the contrast factor
+   also on 128 KITTI frames; kernels 5 and 6: single VGA frames of the
+   per-level path), with the stated tolerances (kernels 1, 3, 4, 6, 7, the
+   NMS, the top-K and the contrast factor bit for bit), and times both; the
+   top-K prints its planes by path, the contrast factor its frames by path
+   and its share of two byte bounds (one read of the interior planes, the
+   least any design moves, and two, its own design's).
    Kernels 3 and 6 (one CUDA kernel) also print their block shape,
    resident blocks per SM, shared memory and registers.  A
    kernel's `ms` is the device time of its __global__ functions under
@@ -79,7 +82,8 @@
    and kernel 4's time by CUDA events beside its operation bound; then the
    per-level top-K kernel on the score fields of 30 such views against its
    plain form, bit for bit, timed beside its byte bound, its planes by path
-   printed.
+   printed, and the contrast factor on the same views' modg planes, as in
+   phase 2.
 
 7. SfM (BASELINE config 5): run_incremental on sfm_scene(50, 600, seed 0,
    noise 5e-4) with SfmConfig(ba_iterations=8), RansacConfig(256, 5e-3),
@@ -278,6 +282,49 @@ def topk_check(torch, stacks, ss, what: str) -> dict:
     return {"paths": paths, "ms": ms, "bound_ms": t, "bytes": nbytes}
 
 
+CONTRAST_KERNELS = ("contrast_max_kernel", "contrast_hist_kernel")
+
+
+def contrast_check(torch, modg, config, what: str) -> dict:
+    """The contrast factor against its plain form on (B, H, W) modg planes,
+    k bit for bit, one launch; its frames by path, its device time under the
+    profiler, whole and per __global__ function (mean of 3 calls), and its
+    time per call (CUDA events, 10 back-to-back), beside two byte bounds:
+    one read of the interior planes, the least any design moves, and two,
+    the kernel's design (a read for the maximum, one for the bins).  Where
+    the profiler missed a launch, `ms` is the events' time."""
+    from akaze_tpu_torch.frontend.scale_space import contrast_factor_from_modg
+    from akaze_tpu_torch.kernels import _build, contrast
+
+    before = _build.launches["contrast"]
+    k = contrast.contrast_factor(modg, config)
+    torch.cuda.synchronize()
+    if _build.launches["contrast"] != before + 1:
+        fail(f"{what}: contrast_factor launched {_build.launches['contrast'] - before} times, expected 1")
+    paths = contrast.path_counts()
+    if not torch.equal(k.view(torch.int32), contrast_factor_from_modg(modg, config).view(torch.int32)):
+        fail(f"{what}: contrast_factor differs from its plain form (bit-equality required)")
+    B, H, W = modg.shape
+    one_read = 4 * B * (H - 2) * (W - 2)
+    reps = 3
+    _, rows = profiled(torch, lambda: [contrast.contrast_factor(modg, config) for _ in range(reps)])
+    seen = {kernel_name(name): (t / reps, c) for t, c, name in rows if kernel_name(name) in CONTRAST_KERNELS}
+    events_ms = back_to_back_ms(torch, lambda: contrast.contrast_factor(modg, config), n=10)
+    whole = len(seen) == len(CONTRAST_KERNELS) and all(c == reps for _, c in seen.values())
+    ms = sum(t for t, _ in seen.values()) if whole else events_ms
+    per = ", ".join(f"{name} {t:.4f} ms in {c} of {reps} launches" for name, (t, c) in seen.items())
+    t1, _ = bound_ms(one_read, 0)
+    t2, _ = bound_ms(2 * one_read, 0)
+    print(f"contrast_factor {what}: k bit-equal to the plain form; frames by path {paths}; profiler: {per}; "
+          f"{events_ms:.4f} ms per call (CUDA events, 10 back-to-back); {ms:.4f} ms "
+          f"({'device' if whole else 'events: the profiler missed launches'}) against the byte bound of one read "
+          f"{t1:.4f} ms ({100 * t1 / ms:.1f} % reached) and of two reads {t2:.4f} ms ({100 * t2 / ms:.1f} % "
+          f"reached)", flush=True)
+    return {"paths": paths, "ms": ms, "device": whole, "per_launch_ms": {name: t for name, (t, _) in seen.items()},
+            "global_launches": sum(c for _, c in seen.values()) / reps, "events_ms": events_ms, "one_read_ms": t1,
+            "two_read_ms": t2}
+
+
 def bound_ms(nbytes: float, nops: float, ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / ops_per_s * 1e3
@@ -471,7 +518,7 @@ def phase_video(torch, np, dev, reset_counts, out: dict) -> None:
         fail("video: unexpected output shapes or keyframes")
     chunks = -(-T // batch)
     expect = {"base_stage": chunks, "fused_octave": 4 * chunks, "describe": chunks, "match": 1 + (T - 1),
-              "nms": chunks, "topk": chunks}
+              "nms": chunks, "topk": chunks, "contrast": chunks}
     print(f"timed call {wall:.3f} s: {T / wall:.1f} frames/s; {len(res.keyframes)} keyframes; keypoints/frame "
           f"mean {kp_mean:.1f}; accepted matches/pair mean {res.match_counts[1:].mean():.1f}; matches to the "
           f"keyframe mean {res.kf_match_counts[1:].mean():.1f}", flush=True)
@@ -695,7 +742,7 @@ def phase_stills(torch, np, dev, reset_counts, out: dict) -> None:
     from akaze_tpu_torch.core.config import AkazeConfig, MatchConfig
     from akaze_tpu_torch.frontend.pipeline import _statics, extract_batch, extract_batch_fn
     from akaze_tpu_torch.kernels import _build
-    from akaze_tpu_torch.kernels.fed import build_scale_space
+    from akaze_tpu_torch.kernels.fed import base_stage, build_scale_space
     from akaze_tpu_torch.kernels.match import match_reduce, match_reduce_plain, pair_table
     from akaze_tpu_torch.matching.hamming import match, match_fn
     from benchmark.scenes.textured_pan import textured_scene
@@ -721,7 +768,7 @@ def phase_stills(torch, np, dev, reset_counts, out: dict) -> None:
     extract_s = time.perf_counter() - t0
     counts = dict(_build.launches)
     launched = dict(counts)  # over the phase's checked calls
-    want = {"base_stage": 1, "fused_octave": 4, "nms": 1, "topk": 1, "describe": 1}
+    want = {"base_stage": 1, "fused_octave": 4, "nms": 1, "topk": 1, "describe": 1, "contrast": 1}
     if any(counts.get(name) != n for name, n in want.items()):
         fail(f"stills: extract_batch of one {W}x{H} frame launched {counts}, expected {want}")
     fp = extract_batch_fn(frame, config, plain=True)
@@ -741,11 +788,16 @@ def phase_stills(torch, np, dev, reset_counts, out: dict) -> None:
     ss, _ = _statics(W, H, config)
     views = torch.stack([torch.round(textured_scene(H, W, gen, dev) * 255.0) / 255.0 for _ in range(N)])
     stacks = [f["score"] for f in build_scale_space(views, ss)["oct"]]
+    modg = base_stage(views, float(config.base_scale_offset))[1]
     del views
     torch.cuda.empty_cache()
     topk_views = topk_check(torch, stacks, ss, f"{N} views at {W}x{H}")
     launched["topk"] += 1
     del stacks
+    torch.cuda.empty_cache()
+    contrast_views = contrast_check(torch, modg, config, f"{N} views at {W}x{H}")
+    launched["contrast"] += 1
+    del modg
     torch.cuda.empty_cache()
 
     # All pairs of N views of K slots: kernel 4 over the pair table in one
@@ -801,7 +853,8 @@ def phase_stills(torch, np, dev, reset_counts, out: dict) -> None:
     out["stills"] = {
         "frame": [W, H], "max_keypoints": K, "valid": n_valid, "extract_ms": extract_s * 1e3,
         "views": N, "pairs": P, "match_reduce_ms": reduce_ms, "match_bound_ms": bound, "accepted": accepted,
-        "checked_rows": rows, "topk": topk_views, "launches": launched, "phase_s": time.perf_counter() - t_phase,
+        "checked_rows": rows, "topk": topk_views, "contrast": contrast_views, "launches": launched,
+        "phase_s": time.perf_counter() - t_phase,
     }
     del d, v, got, plain, m, mp
     torch.cuda.empty_cache()
@@ -2124,7 +2177,7 @@ def main() -> int:
             _statics, extract_batch, extract_batch_fn, extract_fn,
         )
         from akaze_tpu_torch.frontend.scale_space import contrast_factor_from_modg, half_size
-        from akaze_tpu_torch.kernels import _build
+        from akaze_tpu_torch.kernels import _build, contrast
         from akaze_tpu_torch.kernels import fed as fed_kernels
         from akaze_tpu_torch.kernels.describe import describe, describe_plain
         from akaze_tpu_torch.kernels.describe import kernel_occupancy as describe_occupancy
@@ -2209,6 +2262,16 @@ def main() -> int:
            replaces="akaze_tpu/kernels/fed_pallas.py:440", max_abs_err=err1, **tm1,
            plain_ms=plain_ms, bound=bnd)
 
+    # The contrast factor on kernel 1's planes (equal to the plain twin's),
+    # bit for bit, one launch; its row's bound is its design's two reads of
+    # the interior planes, its library the plain form.
+    tc = contrast_check(torch, modg_k, config, f"batch {B} VGA")
+    plain_c = timed(torch, lambda: contrast_factor_from_modg(modg_k, config), reps=1)
+    record("contrast", source="akaze_tpu_torch/csrc/contrast.cu", replaces="none (port-only)", max_abs_err=0.0,
+           ms=tc["ms"], global_launches=tc["global_launches"],
+           wrapper_ms=timed(torch, lambda: contrast.contrast_factor(modg_k, config)), plain_ms=plain_c,
+           library_ms=plain_c, bound=bound_ms(2 * 4 * B * (H - 2) * (W - 2), 0))
+
     # Kernel 2, one entry per octave, each fed the same seed and k.
     k = contrast_factor_from_modg(modg_p, config)
     seed = seed_p
@@ -2289,7 +2352,8 @@ def main() -> int:
     fields = tuple({"score": o[3], "sub": o[4]} for o in oct_p)
 
     # The per-level top-K kernel on the same score fields, then on 128
-    # KITTI frames' (the batch cells' shapes), all leaves bit for bit.
+    # KITTI frames' (the batch cells' shapes), all leaves bit for bit; the
+    # contrast factor on those KITTI frames' modg planes too.
     stacks = [f["score"] for f in fields]
     tk = topk_check(torch, stacks, ss, f"batch {B} VGA")
     tm_topk = times(lambda: topk.per_level_topk(stacks, ss))
@@ -2309,6 +2373,7 @@ def main() -> int:
     imgs_kitti = torch.from_numpy(video_sequence(B, 376, 1241, seed=101)).to(dev)
     topk_check(torch, [f["score"] for f in fed_kernels.build_scale_space(imgs_kitti, ss_kitti)["oct"]], ss_kitti,
                f"batch {B} KITTI 1241x376")
+    contrast_check(torch, base_stage(imgs_kitti, sigma0)[1], config, f"batch {B} KITTI 1241x376")
     del imgs_kitti, stacks
     torch.cuda.empty_cache()
 
@@ -2605,7 +2670,8 @@ def main() -> int:
     n_batches = len(frame_sets)
     fps_of = {}
     launches = run_batches(config, "main path")
-    expect = {"base_stage": 1, "fused_octave": len(groups), "describe": 1, "match": 1, "nms": 1, "topk": 1}
+    expect = {"base_stage": 1, "fused_octave": len(groups), "describe": 1, "match": 1, "nms": 1, "topk": 1,
+              "contrast": 1}
     for name, per in expect.items():
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched by the main path")

@@ -439,8 +439,8 @@ def test_keyframe_loop_issues_no_host_sync(cuda):
 
 def test_batch_path_after_the_scale_space_issues_no_host_sync(cuda):
     """Candidates, detect and the fused describe of a VGA batch make no host
-    sync once the statics' device tables exist (the contrast factor's
-    masked select in the scale space syncs by design)."""
+    sync once the statics' device tables exist (the scale space, contrast
+    factor included, is held to the same in tests/test_torch_contrast.py)."""
     frames = _frames(cuda, n=4, seed=8, size=(480, 640))
     ss, ds = _statics(640, 480, AkazeConfig())
     st = build_scale_space(frames, ss)

@@ -11,7 +11,8 @@ it runs `--calls` calls under a `utils.profiling.SpanRecorder` (each
 span's CUDA-event ms and self ms per call), and `--profile-calls` calls
 under torch.profiler, reduced by `benchmark/harness/spans.py` (idle
 seconds, device operations and their device seconds by the innermost span,
-per call), and the last call's per-level top-K planes by path.  Prints one
+per call), the last call's per-level top-K planes by path and its
+contrast-factor frames by path.  Prints one
 JSON line, with the card's name and power limit.
 """
 
@@ -42,7 +43,7 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from benchmark.harness import runner, spans, spec, stats
-    from akaze_tpu_torch.kernels import topk
+    from akaze_tpu_torch.kernels import contrast, topk
     from akaze_tpu_torch.utils.profiling import SpanRecorder, record_spans
 
     if not torch.cuda.is_available():
@@ -93,6 +94,7 @@ def main(argv=None) -> int:
         "launches_per_call": len(ops) / n, "unlinked_share": unlinked / len(ops) if ops else None,
         "by_span": [[name, idle / n, count / n, device / n] for name, idle, count, device in rows],
         "topk_paths": topk.path_counts(),  # the last call's per-level top-K planes by path
+        "contrast_paths": contrast.path_counts(),  # the last call's contrast-factor frames by path
     }), flush=True)
     return 0
 
